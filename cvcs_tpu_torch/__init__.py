@@ -1,0 +1,13 @@
+"""PyTorch / CUDA port of :mod:`cvcs_tpu` for NVIDIA Hopper (H100).
+
+The JAX package stays the reference; this package runs beside it and
+imports neither ``jax`` nor anything of ``cvcs_tpu``. Entry points run on
+``cuda`` unless the caller asks for the CPU (``device="cpu"``, or
+``device: cpu`` in a config), and raise when no card is present rather
+than running on the CPU unasked.
+
+Ported so far: SwinUnet whole-scene window inference (``infer.engine``,
+``cli.predict``, ``cli.serve``), with the Swin fused window-attention
+forward as a hand-written CUDA kernel (``ops.swin_attn``). ROADMAP.md
+lists what is still to port.
+"""

@@ -1,0 +1,123 @@
+"""Shared CLI plumbing (port of ``cvcs_tpu/cli/common.py``): device
+selection, model construction from a config dict, checkpoint restore,
+label fetch and same-shape raster batching."""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from cvcs_tpu_torch.core.device import resolve_device
+from cvcs_tpu_torch.core.precision import policy_from_config
+from cvcs_tpu_torch.infer.engine import labels_to_host
+from cvcs_tpu_torch.models import build_model
+
+# config keys of paths the port does not run yet -> the ROADMAP item
+UNPORTED_KEYS = {
+    "mesh": "multi-device not yet ported (ROADMAP.md Queue 1 item 14)",
+    "fullconv_bands": "fullconv inference not yet ported "
+                      "(ROADMAP.md Queue 1 item 11)",
+    "fullconv_chunks": "fullconv inference not yet ported "
+                       "(ROADMAP.md Queue 1 item 11)",
+    "stream_rows": "streamed inference not yet ported "
+                   "(ROADMAP.md Queue 1 item 11)",
+}
+
+
+def reject_unported(config: dict) -> None:
+    for key, why in UNPORTED_KEYS.items():
+        if config.get(key):
+            raise NotImplementedError(f"config key {key!r}: {why}")
+
+
+def device_context(config: dict) -> torch.device:
+    """The device a config selects: ``device: cpu`` the CPU, any other
+    value or none the card (raises when there is none)."""
+    return resolve_device("cpu" if config.get("device") == "cpu" else None)
+
+
+def model_dtypes(config: dict) -> dict:
+    return dict(dtype=policy_from_config(config.get("precision")).compute_dtype)
+
+
+def build_net(config: dict, device=None):
+    """Model + spec from config names, seeded-initialised on ``device``;
+    like the reference, builds with num_classes + 1 for background."""
+    name = config["net"]
+    num_classes = int(config.get("num_classes", 15)) + 1
+    model, spec = build_model(
+        name, num_classes, device=device,
+        in_channels=int(config.get("in_channels", 3)),
+        **model_dtypes(config))
+    return model, spec, num_classes
+
+
+def restore_variables(config: dict, model):
+    """Overwrite the model's weights from ``config['load_checkpoint']``:
+    a port state dict saved with ``torch.save`` (``.pt``), or an ``.npz``
+    of JAX variables (see :mod:`cvcs_tpu_torch.weights`)."""
+    ckpt = config.get("load_checkpoint")
+    if not ckpt:
+        return model
+    path = Path(ckpt)
+    if path.is_dir():
+        raise NotImplementedError(
+            f"{ckpt} is an Orbax checkpoint directory; loading those is not "
+            "yet ported (ROADMAP.md Queue 1 item 6) — export an .npz of the "
+            "variables instead")
+    if path.suffix == ".npz":
+        from cvcs_tpu_torch.weights import load_jax_variables, unflatten_npz
+
+        with np.load(path) as arrays:
+            load_jax_variables(model, unflatten_npz(arrays))
+    else:
+        try:
+            sd = torch.load(path, map_location="cpu", weights_only=True)
+        except Exception as err:
+            raise NotImplementedError(
+                f"{ckpt} is not a cvcs_tpu_torch state dict; reference torch "
+                "checkpoints are not yet imported (ROADMAP.md Queue 1 "
+                "item 6)") from err
+        if not (isinstance(sd, dict)
+                and set(sd) == set(model.state_dict())):
+            raise NotImplementedError(
+                f"{ckpt} does not hold this model's state dict; reference "
+                "torch checkpoints are not yet imported (ROADMAP.md Queue 1 "
+                "item 6)")
+        model.load_state_dict(sd, strict=True)
+    print(f"Loaded checkpoint {ckpt}", flush=True)
+    return model
+
+
+def build_apply(config: dict, device=None):
+    """``(model, spec, num_classes)`` for a config's net, seeded, then
+    weights restored from ``load_checkpoint`` if given."""
+    reject_unported(config)
+    model, spec, num_classes = build_net(config, device)
+    restore_variables(config, model)
+    return model, spec, num_classes
+
+
+def resolve_config_arg(argv) -> dict:
+    from cvcs_tpu_torch.config.loader import display_configs, load_yaml
+
+    if len(argv) < 2:
+        raise SystemExit(f"usage: {Path(argv[0]).name} <config.yaml>")
+    config = load_yaml(argv[1])
+    display_configs(config)
+    return config
+
+
+def fetch_labels(labels) -> list:
+    """Label maps (device tensors or host arrays) -> host uint8 arrays."""
+    return [labels_to_host(lab) for lab in labels]
+
+
+def segment_rasters(seg, rasters) -> list:
+    """Per-raster label maps; same-shape rasters run as one batched
+    multi-scene pass."""
+    if len(rasters) > 1 and len({r.shape for r in rasters}) == 1:
+        return list(seg.predict_scenes(rasters))
+    return [seg.predict_scene(r) for r in rasters]

@@ -1,0 +1,43 @@
+"""YAML config loading and key validation (port of the inference and
+serve parts of ``cvcs_tpu/config/loader.py``)."""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import yaml
+
+INFER_KEYS = {
+    "dataset", "net", "load_checkpoint", "patch_size", "border_correction",
+    "range", "mask_only", "out_image", "num_classes", "device", "output",
+    "precision", "bug_parity", "batch_tiles", "load_context", "verbose",
+    "mesh", "tta", "in_channels", "stream_rows", "ensemble_config",
+    "fullconv_bands", "fullconv_chunks",
+}
+SERVE_KEYS = {
+    "watch_dir", "output", "net", "load_checkpoint", "ensemble_config",
+    "patch_size", "border_correction", "batch_tiles", "tta", "num_classes",
+    "precision", "in_channels", "mesh", "device",
+    "poll_s", "settle_s", "max_batch", "max_retries", "max_polls",
+}
+
+
+def load_yaml(path: str | Path) -> dict:
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+def display_configs(config: dict) -> None:
+    width = max((len(str(k)) for k in config), default=0)
+    for key, value in config.items():
+        print(f"{str(key):>{width}} : {value}", flush=True)
+
+
+def validate_keys(config: dict, allowed: set, required: set, job: str) -> None:
+    missing = required - set(config)
+    if missing:
+        raise KeyError(f"{job} config missing required keys: {sorted(missing)}")
+    unknown = set(config) - allowed
+    if unknown:
+        print(f"[cvcs_tpu_torch] warning: unknown {job} config keys "
+              f"ignored: {sorted(unknown)}", flush=True)

@@ -1,0 +1,68 @@
+"""Model registry (port of ``cvcs_tpu/models/registry.py``): config names
+-> builders, with the typed model protocol. Only the Swin family is
+ported; every other name of the JAX registry raises and names the ROADMAP
+item that will port it."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from cvcs_tpu_torch.core.device import resolve_device
+from cvcs_tpu_torch.models.swin import SwinUNet, init_weights
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    name: str
+    build: Callable[..., torch.nn.Module]
+    requires_context: bool = False
+    returns_logits: bool = True
+
+
+MODEL_REGISTRY: dict[str, ModelSpec] = {
+    "SwinUnet": ModelSpec(
+        "SwinUnet",
+        lambda num_classes, **kw: SwinUNet(num_classes=num_classes, **kw)),
+    "SwinUnetTiny": ModelSpec(
+        "SwinUnetTiny",
+        lambda num_classes, **kw: SwinUNet(
+            num_classes=num_classes, dims=(32, 64, 128, 256),
+            depths=(1, 1, 2, 1), heads=(1, 2, 4, 8), **kw)),
+}
+
+# the JAX registry's other names -> the ROADMAP item that ports them
+NOT_YET_PORTED = {
+    "Unet": "Queue 1 item 1 (U-Nets)",
+    "Unetv2": "Queue 1 item 1 (U-Nets)",
+    "Unetv2S2D": "Queue 1 item 1 (U-Nets)",
+    "Resnet101": "Queue 1 item 9 (DeepLab family)",
+    "Resnet50": "Queue 1 item 9 (DeepLab family)",
+    "MobileNet": "Queue 1 item 9 (DeepLab family)",
+    "MobileNetGoogle": "Queue 1 item 9 (DeepLab family)",
+    "MobileNetResnet18": "Queue 1 item 9 (DeepLab family)",
+    "SegformerMod": "Queue 1 item 8 (SegFormer)",
+    "SegformerB0": "Queue 1 item 8 (SegFormer)",
+    "SegformerB1": "Queue 1 item 8 (SegFormer)",
+    "Ensemble": "Queue 1 item 10 (Ensemble and ViT)",
+}
+
+
+def build_model(name: str, num_classes: int, *, device=None, seed: int = 0,
+                **kw: Any) -> tuple[torch.nn.Module, ModelSpec]:
+    """Build a zoo model by config name, seeded-initialised, in eval mode,
+    on ``device`` (the card unless the CPU is asked for). Like the JAX
+    registry, ``num_classes`` counts the background class."""
+    if name in NOT_YET_PORTED:
+        raise NotImplementedError(
+            f"net {name!r} is not yet ported to cvcs_tpu_torch; see "
+            f"ROADMAP.md {NOT_YET_PORTED[name]}")
+    if name not in MODEL_REGISTRY:
+        raise ValueError(
+            f"unknown net {name!r}; available: {sorted(MODEL_REGISTRY)}")
+    dev = resolve_device(device)
+    spec = MODEL_REGISTRY[name]
+    model = init_weights(spec.build(num_classes, **kw), seed)
+    return model.to(dev).eval(), spec
