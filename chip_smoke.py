@@ -7,12 +7,14 @@ Phases (any failure raises and the script exits non-zero):
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit;
-2. build: every CUDA source of the main path, one ``nvcc`` each, in
+2. build: every CUDA source of the main paths, one ``nvcc`` each, in
    parallel, into ``build/kernels/``;
 3. kernels vs their plain PyTorch versions on the card, at the shapes the
-   main path gives them (bf16 and f32 instances), within stated
-   tolerances;
-4. the main path: full-width SwinUnet (random weights from a fixed
+   main paths give them (bf16 and f32 instances), within stated
+   tolerances: K1 (window-attention forward) at the serving shapes, K2
+   (its backward) at the p-224 training stage shapes, K5 (fused
+   augmentation) on a training chunk;
+4. the serving path: full-width SwinUnet (random weights from a fixed
    seed) segments one full-size 6800 x 7200 GID15-like scene
    (``predict_scene``, p 224, border correction 256, 128 windows per
    forward, bf16) and the serve daemon drains three 1792 x 2240 rasters;
@@ -20,7 +22,19 @@ Phases (any failure raises and the script exits non-zero):
    the f32 policy through the kernel and through the plain attention
    must give the same labels on >= 99.9% of pixels; one forward of 128
    windows is timed and traced (torch.profiler) for where its time goes;
-5. times (CUDA events, after warm-up) of each kernel beside its bound,
+5. the training path: ``python -m cvcs_tpu_torch.cli.train``'s ``main``
+   trains full-width SwinUnet with the recipe's geometry (p 224, batch
+   10, wCEL with ignore_background, SGD2, bf16, random_shift,
+   ``augmentation: fused``) for 2 epochs on a synthetic dataset (2 train
+   scenes of 1792 x 2240, 160 patches per chunk, 1 validation scene),
+   then resumes from the epoch-1 checkpoint; the counters must show K1
+   and K2 12 times per step and K5 once per chunk; a few steps are timed
+   (CUDA events) and traced for the share of each kernel;
+6. training correctness: one f32 train step through the kernels and one
+   through the plain versions (called directly by this script) from the
+   same weights and batch agree; a 30-step bf16 fixed-batch overfit
+   lowers the loss;
+7. times (CUDA events, after warm-up) of each kernel beside its bound,
    its plain version and a library yardstick.
 
 The last two lines are a JSON object of per-kernel numbers and the
@@ -44,7 +58,7 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}   # x max(1, |plain|max)
-B = 128                            # windows per forward on the main path
+B = 128                            # windows per forward on the serving path
 # (name, Hp = Wp, C, heads, win, h0 = w0, shift): K1 at the main path's
 # four stage shapes (bc 256 windows), unmasked and with the region mask,
 # plus the T = 49 stage-4 shape of p 224 without border correction and
@@ -202,7 +216,222 @@ def time_k1() -> dict:
     return dict(total=total, per_case=rows)
 
 
-# -- the main path -------------------------------------------------------------
+# -- K2: Swin window attention backward ----------------------------------------
+B_TRAIN = 10                       # patches per training step (the recipe)
+TOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 5e-2}  # x max(1, |plain|max)
+# (name, Hp = Wp, C, heads, win, h0 = w0, shift): K2 at the four stage
+# shapes of a p-224 training step (56 unpadded, 28 -> 32, 14 -> 16, one
+# 7 x 7 window), shifted and unshifted, plus a pad-masked 56 -> 64 map
+K2_CASES = [
+    ("s1", 56, 96, 3, 8, 56, 0), ("s1_shift", 56, 96, 3, 8, 56, 4),
+    ("s2", 32, 192, 6, 8, 28, 0), ("s2_shift", 32, 192, 6, 8, 28, 4),
+    ("s3", 16, 384, 12, 8, 14, 0), ("s3_shift", 16, 384, 12, 8, 14, 4),
+    ("s4", 7, 768, 24, 7, 7, 0), ("pad56", 64, 96, 3, 8, 56, 0),
+]
+# K2 (and K1) launches of one SwinUnet train step at p 224: (case, launches)
+K2_PER_STEP = [("s1", 1), ("s1_shift", 1), ("s2", 1), ("s2_shift", 1),
+               ("s3", 3), ("s3_shift", 3), ("s4", 2)]
+GRADS = ("dx", "dlns", "dlnb", "dwqkv", "dbqkv", "dwout", "dbout")
+
+
+def k2_inputs(case, dtype, seed=0):
+    from cvcs_tpu_torch.models.swin import attn_bias
+
+    _, hp, c, heads, win, h0, shift = case
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=g) * std).cuda()
+
+    args = [rnd(B_TRAIN, hp, hp, c).to(dtype), 1 + rnd(c, std=0.1),
+            rnd(c, std=0.1), rnd(c, 3 * c, std=c ** -0.5),
+            rnd(3 * c, std=0.02), rnd(c, c, std=c ** -0.5), rnd(c, std=0.02)]
+    bias = attn_bias(hp, hp, h0, h0, win, shift, args[0].device)
+    cot = rnd(B_TRAIN, hp, hp, c).to(dtype)
+    return args, bias, cot, dict(win=win, heads=heads)
+
+
+def k2_bound(case, dtype, masked: bool) -> tuple[float, float]:
+    """(ms of the bytes at the memory rate, ms of the operations at the
+    peak rate): x and g read, dx written, the weights read, the six f32
+    gradients written, the mask read; 22 N C^2 + 12 N T C operations."""
+    _, hp, c, _, win, _, _ = case
+    s = torch.finfo(dtype).bits // 8
+    n = B_TRAIN * hp * hp
+    t = win * win
+    nwin = (hp // win) ** 2
+    nbytes = (3 * n * c * s + (4 * c * c + 4 * c) * s + 2 * c * 4
+              + (4 * c * c + 6 * c) * 4 + (nwin * t * t * 4 if masked else 0))
+    flops = 22 * n * c * c + 12 * n * t * c
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+
+
+def check_k2() -> tuple[float, float]:
+    """K2 vs its plain version at every case, bf16 and f32, all seven
+    outputs; returns the largest bf16 abs error and the largest bf16
+    error over its scale at the training stage shapes."""
+    from cvcs_tpu_torch.ops import swin_attn
+
+    worst, worst_scaled = 0.0, 0.0
+    for case in K2_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            args, bias, cot, kw = k2_inputs(case, dtype)
+            got = swin_attn._bwd_kernel_launch(*args, bias, cot, **kw)
+            torch.cuda.synchronize()
+            want = swin_attn.swin_window_attention_bwd_plain(*args, bias, cot,
+                                                             **kw)
+            torch.cuda.synchronize()
+            errs = []
+            for name, a, w in zip(GRADS, got, want):
+                scale = max(1.0, w.float().abs().max().item())
+                err = (a.float() - w.float()).abs().max().item()
+                ok = (err <= TOL_BWD[dtype] * scale
+                      and bool(torch.isfinite(a).all()) and a.dtype == w.dtype)
+                if not ok:
+                    raise AssertionError(f"K2 {case[0]} {dtype} {name}: "
+                                         f"{err} > {TOL_BWD[dtype]} * {scale}")
+                errs.append((err, err / scale))
+            e, es = max(x for x, _ in errs), max(y for _, y in errs)
+            log(f"  K2 {case[0]:>9} {str(dtype)[6:]:>8} B={B_TRAIN} "
+                f"Hp={case[1]} C={case[2]} heads={case[3]} win={case[4]} "
+                f"mask={'none' if bias is None else 'yes'}: 7 outputs, max "
+                f"abs err {e:.3e}, max err/scale {es:.2e} (tol "
+                f"{TOL_BWD[dtype]:.0e}) ok")
+            if dtype == torch.bfloat16 and case[0].startswith("s"):
+                worst, worst_scaled = max(worst, e), max(worst_scaled, es)
+            del args, got, want
+    return worst, worst_scaled
+
+
+def k2_library(args, bias, cot, kw):
+    """Yardstick the port never calls: autograd backward through the
+    composite F.layer_norm + F.linear + F.scaled_dot_product_attention +
+    F.linear forward (the graph is built once, then replayed)."""
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    out = k1_library(*leaves, bias, **kw)
+    return lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True)
+
+
+def time_k2() -> dict:
+    """Per-case times (bf16, the training path) and per-step totals."""
+    from cvcs_tpu_torch.ops import swin_attn
+
+    cases = {c[0]: c for c in K2_CASES}
+    rows = {}
+    for name, _ in K2_PER_STEP:
+        args, bias, cot, kw = k2_inputs(cases[name], torch.bfloat16)
+        before = swin_attn.bwd_launches
+        r = rows[name] = dict(
+            ms=cuda_ms(lambda: swin_attn._bwd_kernel_launch(
+                *args, bias, cot, **kw)),
+            plain_ms=cuda_ms(lambda: swin_attn.swin_window_attention_bwd_plain(
+                *args, bias, cot, **kw)),
+            library_ms=cuda_ms(k2_library(args, bias, cot, kw)))
+        r["bytes_ms"], r["ops_ms"] = k2_bound(cases[name], torch.bfloat16,
+                                              bias is not None)
+        r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
+        swin_attn.bwd_launches = before  # timing launches are not the path's
+        log(f"  K2 {name:>9} bf16: kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, composite library backward "
+            f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+            f"(bytes {r['bytes_ms']:.4f}, operations {r['ops_ms']:.4f}; "
+            f"kernel at {r['bound_ms'] / r['ms'] * 100:.2f}% of bound)")
+        del args
+    total = {k: sum(rows[n][k] * cnt for n, cnt in K2_PER_STEP)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
+                       "ops_ms")}
+    log(f"  K2 per train step (12 launches, bf16, B={B_TRAIN}): kernel "
+        f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, composite "
+        f"library {total['library_ms']:.3f} ms, bound "
+        f"{total['bound_ms']:.4f} ms")
+    return dict(total=total, per_case=rows)
+
+
+# -- K5: fused augmentation ------------------------------------------------------
+B_CHUNK = 160                      # patches of one training chunk
+
+
+def k5_inputs(c, seed=0):
+    from cvcs_tpu_torch.ops import augment
+
+    g = torch.Generator(device="cuda").manual_seed(seed + c)
+    img = torch.randint(0, 256, (B_CHUNK, 224, 224, c), generator=g,
+                        device="cuda", dtype=torch.uint8)
+    flips, rots, factors = augment.draw_dihedral(B_CHUNK, 0.6, g)
+    mean = torch.linspace(60.0, 120.0, c, device="cuda")
+    std = torch.linspace(30.0, 70.0, c, device="cuda")
+    return img, flips, rots, factors, mean, std
+
+
+def k5_library(img, flips, rots, factors, mean, std):
+    """Yardstick the port never calls: the same function from library
+    calls, torch.flip / torch.rot90 on each group of patches that share
+    a (flip, rot90) draw, then the contrast and normalisation ops."""
+    x = torch.empty(img.shape, dtype=torch.float32, device=img.device)
+    key = flips.long() * 4 + rots.long()
+    for k in range(16):
+        idx = (key == k).nonzero().flatten()
+        part = img.index_select(0, idx).float()
+        if k // 4 & 1:
+            part = torch.flip(part, (2,))
+        if k // 4 & 2:
+            part = torch.flip(part, (1,))
+        x.index_copy_(0, idx, torch.rot90(part, k % 4, (1, 2)))
+    gray = 0.2989 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2]
+    m = torch.floor(gray).mean((1, 2)).view(-1, 1, 1, 1)
+    f = factors.view(-1, 1, 1, 1)
+    x = torch.floor(torch.clamp(f * x + (1 - f) * m, 0, 255))
+    return (x - mean) / std
+
+
+def check_k5() -> float:
+    """K5 vs its plain version on a training chunk, C 3 and 4, with a
+    non-identity band mean/std: equal elements except near floor
+    boundaries (>= 99.9% equal, the rest within 1/std)."""
+    from cvcs_tpu_torch.ops import augment
+
+    worst = 0.0
+    for c in (3, 4):
+        args = k5_inputs(c)
+        got = augment.fused_augment(*args)
+        torch.cuda.synchronize()
+        want = augment.fused_augment_plain(*args)
+        lib = k5_library(*args)
+        err = (got - want).abs().max().item()
+        equal = (got == want).float().mean().item()
+        ok = (equal >= 0.999 and bool(((got - want).abs()
+                                       <= 1 / args[5] + 1e-6).all())
+              and torch.equal(lib, want))
+        log(f"  K5 B={B_CHUNK} P=224 C={c}: {equal * 100:.4f}% elements equal"
+            f" to plain, max abs err {err:.3e}; library composite equal to "
+            f"plain: {torch.equal(lib, want)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K5 C={c}: {equal} equal, err {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def time_k5() -> dict:
+    from cvcs_tpu_torch.ops import augment
+
+    args = k5_inputs(3)
+    before = augment.launches
+    r = dict(ms=cuda_ms(lambda: augment.fused_augment(*args)),
+             plain_ms=cuda_ms(lambda: augment.fused_augment_plain(*args)),
+             library_ms=cuda_ms(lambda: k5_library(*args)))
+    augment.launches = before
+    nbytes = B_CHUNK * 224 * 224 * 3 * (1 + 4)
+    r["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    r["ops_ms"] = B_CHUNK * 224 * 224 * 3 * 12 / PEAK_FLOPS[torch.float32] * 1e3
+    r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
+    log(f"  K5 B={B_CHUNK} P=224 C=3: kernel {r['ms']:.3f} ms, plain "
+        f"{r['plain_ms']:.3f} ms, library composite {r['library_ms']:.3f} ms,"
+        f" bound {r['bound_ms']:.4f} ms (bytes; kernel at "
+        f"{r['bound_ms'] / r['ms'] * 100:.1f}% of bound)")
+    return r
+
+
+# -- the serving path ----------------------------------------------------------
 def synthetic_scene(h, w, seed):
     """Blocky uint8 scene with texture: labels vary across it."""
     rng = np.random.default_rng(seed)
@@ -211,24 +440,18 @@ def synthetic_scene(h, w, seed):
     return img + rng.integers(0, 64, (h, w, 3), np.uint8)
 
 
-def forward_breakdown(model) -> dict:
-    """Where one forward's time goes: a SwinUnet forward of B bc-256
-    windows timed with CUDA events, then traced once with torch.profiler
-    for the device time of each kernel and the device's idle share (the
-    gaps between kernels over the span from the first kernel's start to
-    the last one's end)."""
+def device_profile(fn) -> dict:
+    """Run ``fn`` under torch.profiler: device time by kernel name, the
+    span from the first kernel's start to the last one's end, and the
+    device's idle share of that span."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    g = torch.Generator().manual_seed(2)
-    x = torch.randint(0, 256, (B, 256, 256, 3), generator=g,
-                      dtype=torch.uint8).cuda().float()
-    with torch.inference_mode():
-        ms = cuda_ms(lambda: model(x), iters=5, warmup=1)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            model(x)
-            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
     spans, by_name = [], {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -245,20 +468,42 @@ def forward_breakdown(model) -> dict:
         busy_us += max(0.0, e - max(s, end))
         end = max(end, e)
     span_ms = (end - spans[0][0]) / 1e3
-    kernel_ms = sum(t for t, _ in by_name.values())
-    k1 = [(t, n) for name, (t, n) in by_name.items() if "swin_attn" in name]
-    k1_ms = sum(t for t, _ in k1)
+
+    def ms_of(key):
+        return sum(t for name, (t, _) in by_name.items() if key in name)
+
+    return dict(by_name=by_name, span_ms=span_ms,
+                kernel_ms=sum(t for t, _ in by_name.values()),
+                idle_share=1 - busy_us / 1e3 / span_ms,
+                K1=ms_of("swin_attn_fwd"), K2=ms_of("swin_bwd_"),
+                K5=ms_of("augment_kernel"))
+
+
+def forward_breakdown(model) -> dict:
+    """Where one forward's time goes: a SwinUnet forward of B bc-256
+    windows timed with CUDA events, then traced once with torch.profiler
+    for the device time of each kernel and the device's idle share."""
+    g = torch.Generator().manual_seed(2)
+    x = torch.randint(0, 256, (B, 256, 256, 3), generator=g,
+                      dtype=torch.uint8).cuda().float()
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: model(x), iters=5, warmup=1)
+        prof = device_profile(lambda: model(x))
+    by_name = prof["by_name"]
+    k1_launches = sum(n for name, (_, n) in by_name.items()
+                      if "swin_attn_fwd" in name)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     log(f"  forward bf16, {B} windows of 256x256: {ms:.3f} ms (CUDA events); "
-        f"traced: kernels {kernel_ms:.3f} ms over a {span_ms:.3f} ms span, "
-        f"device idle {(1 - busy_us / 1e3 / span_ms) * 100:.1f}%; K1 "
-        f"{k1_ms:.3f} ms in {sum(n for _, n in k1)} launches = "
-        f"{k1_ms / kernel_ms * 100:.1f}% of kernel time")
+        f"traced: kernels {prof['kernel_ms']:.3f} ms over a "
+        f"{prof['span_ms']:.3f} ms span, device idle "
+        f"{prof['idle_share'] * 100:.1f}%; K1 {prof['K1']:.3f} ms in "
+        f"{k1_launches} launches = {prof['K1'] / prof['kernel_ms'] * 100:.1f}%"
+        " of kernel time")
     for name, (t, n) in top:
         log(f"    {t:9.3f} ms {n:4d}x {name[:90]}")
-    return dict(ms=ms, kernel_ms=kernel_ms, span_ms=span_ms,
-                idle_share=1 - busy_us / 1e3 / span_ms, k1_ms=k1_ms,
-                k1_launches=sum(n for _, n in k1),
+    return dict(ms=ms, kernel_ms=prof["kernel_ms"], span_ms=prof["span_ms"],
+                idle_share=prof["idle_share"], k1_ms=prof["K1"],
+                k1_launches=k1_launches,
                 top=[dict(name=k[:90], ms=t, count=n) for k, (t, n) in top])
 
 
@@ -358,11 +603,283 @@ def main_path(result: dict) -> None:
     result["f32_agreement"] = agree
 
 
+# -- the training path -----------------------------------------------------------
+TRAIN_EPOCHS = 2
+STEPS_PER_EPOCH = 16               # 2 scenes x 80 tiles / batch 10
+VAL_BATCHES, EVAL_BATCHES = 8, 10  # 80 validation patches / 10, / 8
+
+
+def synthetic_dataset(root: Path, n: int, seed: int) -> str:
+    """GID15-layout dataset of n 1792 x 2240 scenes with blocky labels."""
+    from PIL import Image
+
+    (root / "Image__8bit_NirRGB").mkdir(parents=True)
+    (root / "Annotation__index").mkdir()
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        Image.fromarray(synthetic_scene(1792, 2240, seed + i)).save(
+            root / "Image__8bit_NirRGB" / f"s{i}.png")
+        labels = np.kron(rng.integers(0, 16, (56, 70), dtype=np.uint8),
+                         np.ones((32, 32), np.uint8))
+        Image.fromarray(labels).save(
+            root / "Annotation__index" / f"s{i}_15label.png")
+    return str(root)
+
+
+def kernel_counts() -> tuple[int, int, int]:
+    from cvcs_tpu_torch.ops import augment, swin_attn
+
+    return swin_attn.launches, swin_attn.bwd_launches, augment.launches
+
+
+def reset_counts() -> None:
+    from cvcs_tpu_torch.ops import augment, swin_attn
+
+    swin_attn.launches = swin_attn.bwd_launches = augment.launches = 0
+
+
+def train_breakdown(trainer) -> dict:
+    """Where a train step's time goes: the mean step timed with CUDA
+    events; four steps on a ready chunk traced (kernel shares, device idle
+    share); one chunk's load and augmentation traced; and K5's share of a
+    whole chunk cycle (its load plus its 16 steps)."""
+    from cvcs_tpu_torch.train.step import train_step
+
+    state, loss_fn, loader = trainer.state, trainer.loss_fn, trainer.train_loader
+    chunk = loader.get_chunk(0)
+    batches = list(chunk.batches(B_TRAIN))
+    step_ms = cuda_ms(lambda: train_step(state, loss_fn, batches[0].image,
+                                         batches[0].mask), iters=5, warmup=1)
+    steps = device_profile(lambda: [train_step(state, loss_fn, b.image, b.mask)
+                                    for b in batches[1:5]])
+    load = device_profile(lambda: loader.get_chunk(0))
+    per_step = {k: steps[k] / 4 for k in ("kernel_ms", "K1", "K2")}
+    cycle_ms = load["kernel_ms"] + STEPS_PER_EPOCH * per_step["kernel_ms"]
+    shares = dict(K1=per_step["K1"] / per_step["kernel_ms"],
+                  K2=per_step["K2"] / per_step["kernel_ms"],
+                  K5_of_chunk_cycle=load["K5"] / cycle_ms)
+    log(f"  train step bf16 B={B_TRAIN} p 224: {step_ms:.3f} ms (CUDA events,"
+        f" mean of 5); 4 steps traced: kernels {per_step['kernel_ms']:.3f} ms"
+        f" per step over a {steps['span_ms'] / 4:.3f} ms span, device idle "
+        f"{steps['idle_share'] * 100:.1f}%; K1 {per_step['K1']:.3f} ms = "
+        f"{shares['K1'] * 100:.1f}%, K2 {per_step['K2']:.3f} ms = "
+        f"{shares['K2'] * 100:.1f}% of kernel time")
+    log(f"  chunk load + K5 traced: kernels {load['kernel_ms']:.3f} ms (K5 "
+        f"{load['K5']:.3f} ms) over a {load['span_ms']:.3f} ms span, device "
+        f"idle {load['idle_share'] * 100:.1f}%; K5 = "
+        f"{shares['K5_of_chunk_cycle'] * 100:.2f}% of a chunk cycle's kernel"
+        f" time")
+    top = sorted(steps["by_name"].items(), key=lambda kv: -kv[1][0])[:10]
+    for name, (t, n) in top:
+        log(f"    {t / 4:9.3f} ms {n // 4:4d}x per step  {name[:80]}")
+    return dict(step_ms=step_ms, step_kernel_ms=per_step["kernel_ms"],
+                step_span_ms=steps["span_ms"] / 4,
+                step_idle_share=steps["idle_share"],
+                K1_ms_per_step=per_step["K1"], K2_ms_per_step=per_step["K2"],
+                chunk_load_kernel_ms=load["kernel_ms"],
+                chunk_load_span_ms=load["span_ms"], K5_ms=load["K5"],
+                shares=shares,
+                top=[dict(name=k[:90], ms_per_step=t / 4, count=n // 4)
+                     for k, (t, n) in top])
+
+
+def train_path(result: dict) -> None:
+    """Train through the CLI's entry point, check the counts, resume."""
+    import yaml
+
+    from cvcs_tpu_torch.cli import train as train_cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg = dict(
+            train=synthetic_dataset(tmp / "train", 2, seed=20),
+            validation=synthetic_dataset(tmp / "val", 1, seed=30),
+            checkpoint_directory=str(tmp / "ckpt"), device="gpu",
+            net="SwinUnet", epochs=TRAIN_EPOCHS, chunk_size=2,
+            validation_chunk_size=1, patch_size=224, batch_size=B_TRAIN,
+            loss="wCEL", opt="SGD2", ignore_background=True,
+            random_shift=True, augmentation="fused", freq=1,
+            precision_evaluation_freq=1, num_classes=15, verbose=True,
+            precision="bf16", seed=0, metrics_log=str(tmp / "metrics.jsonl"))
+        path = tmp / "train.yaml"
+        path.write_text(yaml.safe_dump(cfg))
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = train_cli.main(["train", str(path)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k1, k2, k5 = kernel_counts()
+        assert rc == 0, rc
+        steps = TRAIN_EPOCHS * STEPS_PER_EPOCH
+        want_k1 = 12 * (steps + TRAIN_EPOCHS * (VAL_BATCHES + EVAL_BATCHES))
+        metrics = [json.loads(x) for x in
+                   (tmp / "metrics.jsonl").read_text().splitlines()]
+        meta = json.loads((tmp / "ckpt" / f"checkpoint{TRAIN_EPOCHS}"
+                           / "meta.json").read_text())
+        losses = meta["training_loss_values"]
+        log(f"  cli.train SwinUnet bf16, {TRAIN_EPOCHS} epochs x "
+            f"{STEPS_PER_EPOCH} steps in {secs:.2f} s (model build, class "
+            f"weights, validation and evaluation included); epoch 2: "
+            f"{metrics[1]['patches_per_s']:.1f} patches/s over "
+            f"{metrics[1]['epoch_s']:.2f} s; losses "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}, all finite: "
+            f"{bool(np.isfinite(losses).all())}; validation losses "
+            f"{[round(v, 4) for v in meta['validation_loss_values'][::8]]}")
+        log(f"  launches: K1 {k1} (expected 12 x ({steps} steps + "
+            f"{TRAIN_EPOCHS} x ({VAL_BATCHES} validation + {EVAL_BATCHES} "
+            f"evaluation batches)) = {want_k1}), K2 {k2} (expected "
+            f"{12 * steps}), K5 {k5} (expected {TRAIN_EPOCHS}, one per "
+            f"chunk); per epoch: K1 {k1 // TRAIN_EPOCHS}, K2 "
+            f"{k2 // TRAIN_EPOCHS}, K5 {k5 // TRAIN_EPOCHS}")
+        assert (k1, k2, k5) == (want_k1, 12 * steps, TRAIN_EPOCHS)
+        assert len(losses) == steps and np.isfinite(losses).all()
+        assert np.isfinite(meta["validation_loss_values"]).all()
+        assert len(meta["conf_flat"]) == TRAIN_EPOCHS
+        result["train"] = dict(
+            launches=dict(K1=k1, K2=k2, K5=k5), seconds=secs,
+            patches_per_s_epoch2=metrics[1]["patches_per_s"],
+            epoch2_s=metrics[1]["epoch_s"], first_loss=losses[0],
+            last_loss=losses[-1])
+
+        # resume from the epoch-1 checkpoint: epoch 2 again, histories go on
+        cfg.update(load_checkpoint=str(tmp / "ckpt" / "checkpoint1"),
+                   metrics_log=str(tmp / "resume.jsonl"))
+        path.write_text(yaml.safe_dump(cfg))
+        assert train_cli.main(["train", str(path)]) == 0
+        again = json.loads((tmp / "ckpt" / f"checkpoint{TRAIN_EPOCHS}"
+                            / "meta.json").read_text())
+        hist = again["training_loss_values"]
+        log(f"  resumed from checkpoint1: {len(hist)} training losses, the "
+            f"first {STEPS_PER_EPOCH} equal to the first run's: "
+            f"{hist[:STEPS_PER_EPOCH] == losses[:STEPS_PER_EPOCH]}; epoch 2 "
+            f"again {hist[STEPS_PER_EPOCH]:.4f} -> {hist[-1]:.4f}")
+        assert len(hist) == steps and np.isfinite(hist).all()
+        assert hist[:STEPS_PER_EPOCH] == losses[:STEPS_PER_EPOCH]
+
+        trainer = train_cli.build_trainer(dict(cfg, load_checkpoint=None))
+        result["train"]["breakdown"] = train_breakdown(trainer)
+        del trainer
+    torch.cuda.empty_cache()
+
+
+class PlainAttention(torch.autograd.Function):
+    """The window-attention op through the plain versions, forward and
+    backward, called by this script directly (no wrapper falls back)."""
+
+    @staticmethod
+    def forward(ctx, x, ln_s, ln_b, wqkv, bqkv, wout, bout, bias, win, heads):
+        from cvcs_tpu_torch.ops import swin_attn
+
+        ctx.win, ctx.heads = win, heads
+        ctx.save_for_backward(x, ln_s, ln_b, wqkv, bqkv, wout, bout, bias)
+        return swin_attn.swin_window_attention_plain(
+            x, ln_s, ln_b, wqkv, bqkv, wout, bout, bias, win=win, heads=heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        from cvcs_tpu_torch.ops import swin_attn
+
+        x, *params, bias = ctx.saved_tensors
+        dx, *grads = swin_attn.swin_window_attention_bwd_plain(
+            x, *params, bias, g, win=ctx.win, heads=ctx.heads)
+        return (dx, *[gr.to(p.dtype) for gr, p in zip(grads, params)],
+                None, None, None)
+
+
+def plain_attention(x, ln_s, ln_b, wqkv, bqkv, wout, bout, bias=None, *,
+                    win, heads):
+    return PlainAttention.apply(x, ln_s, ln_b, wqkv, bqkv, wout, bout, bias,
+                                win, heads)
+
+
+def train_correctness(result: dict) -> None:
+    """One f32 train step through the kernels vs one through the plain
+    versions, from the same weights and batch: loss within 1e-4 relative,
+    every updated parameter within 1e-4 * max(1, |plain|max). Then 30
+    bf16 steps on one fixed batch must lower the loss."""
+    from cvcs_tpu_torch.models import build_model
+    from cvcs_tpu_torch.models import swin as swin_mod
+    from cvcs_tpu_torch.ops import losses, swin_attn
+    from cvcs_tpu_torch.train.optim import build_optimizer
+    from cvcs_tpu_torch.train.state import TrainState
+    from cvcs_tpu_torch.train.step import train_step
+
+    g = torch.Generator().manual_seed(5)
+    image = torch.randint(0, 256, (B_TRAIN, 224, 224, 3), generator=g,
+                          dtype=torch.uint8).cuda()
+    blocks = torch.randint(0, 16, (B_TRAIN, 7, 7), generator=g)
+    mask = blocks.repeat_interleave(32, 1).repeat_interleave(32, 2).cuda()
+    weights = torch.rand(16, generator=g) + 0.5
+    weights[0] = 0.0
+    loss_fn = losses.build_loss("wCEL", weights=weights,
+                                ignore_background=True, device="cuda")
+
+    def one_step(dtype):
+        model, _ = build_model("SwinUnet", 16, seed=0, dtype=dtype)
+        opt = build_optimizer("SGD2", model.parameters())
+        opt.set_epoch(0)
+        state = TrainState(model, opt)
+        return state, float(train_step(state, loss_fn, image, mask))
+
+    f1, b1 = swin_attn.launches, swin_attn.bwd_launches
+    kstate, kloss = one_step(torch.float32)
+    assert (swin_attn.launches - f1, swin_attn.bwd_launches - b1) == (12, 12)
+    swin_mod.swin_window_attention = plain_attention
+    try:
+        pstate, ploss = one_step(torch.float32)
+    finally:
+        swin_mod.swin_window_attention = swin_attn.swin_window_attention
+    assert (swin_attn.launches - f1, swin_attn.bwd_launches - b1) == (12, 12)
+    worst, worst_grad = 0.0, 0.0
+    kparams = dict(kstate.model.named_parameters())
+    for name, p in pstate.model.named_parameters():
+        scale = max(1.0, p.abs().max().item())
+        err = (kparams[name] - p).abs().max().item() / scale
+        gscale = max(1.0, p.grad.abs().max().item())
+        worst_grad = max(worst_grad, (kparams[name].grad - p.grad).abs()
+                         .max().item() / gscale)
+        if err > 1e-4:
+            raise AssertionError(f"{name}: kernel step vs plain step {err}")
+        worst = max(worst, err)
+    rel = abs(kloss - ploss) / abs(ploss)
+    log(f"  f32 train step, kernels vs plain versions: loss {kloss:.6f} vs "
+        f"{ploss:.6f} (relative {rel:.2e}); updated parameters max err/scale "
+        f"{worst:.2e}; gradients max err/scale {worst_grad:.2e}")
+    assert rel <= 1e-4
+    del kstate, pstate
+
+    model, _ = build_model("SwinUnet", 16, seed=0, dtype=torch.bfloat16)
+    opt = build_optimizer("SGD2", model.parameters())
+    opt.set_epoch(0)
+    state = TrainState(model, opt)
+    curve = [float(train_step(state, loss_fn, image, mask)) for _ in range(30)]
+    log(f"  bf16 overfit, 30 steps on one batch: loss {curve[0]:.4f} -> "
+        f"{curve[-1]:.4f} (min {min(curve):.4f})")
+    assert np.isfinite(curve).all() and curve[-1] < curve[0]
+    result["correctness"] = dict(f32_loss_rel=rel, f32_param_err=worst,
+                                 f32_grad_err=worst_grad,
+                                 overfit=[curve[0], curve[-1]])
+    del state, model
+    torch.cuda.empty_cache()
+
+
+def kernel_entry(meta, launches, err, times, library, per, **extra) -> dict:
+    t = times["total"] if "total" in times else times
+    return dict(
+        name=meta["name"], route=meta["route"], source=meta["source"],
+        replaces=meta["replaces"], launches=launches, max_abs_err=err,
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by="bytes" if t["bytes_ms"] > t["ops_ms"] else "operations",
+        library_ms=t["library_ms"], library=library, per=per,
+        **({"per_case": times["per_case"]} if "per_case" in times else {}),
+        **extra)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    from cvcs_tpu_torch.ops import _build, swin_attn
+    from cvcs_tpu_torch.ops import _build, augment, swin_attn
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 means f32
     torch.backends.cudnn.allow_tf32 = False
@@ -372,43 +889,58 @@ def main() -> int:
         f"{torch.cuda.device_count()}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    kernels = {"swin_attn": swin_attn}
-    secs = _build.build(list(kernels))
-    for name in kernels:
+    sources = ("swin_attn", "swin_attn_bwd", "augment")
+    secs = _build.build(list(sources))
+    for name in sources:
         ptxas = [ln.strip() for ln in _build.build_log(name).splitlines()
                  if "registers" in ln or "spill" in ln]
         log(f"[2] built {name}.cu for sm_90a in {secs.get(name, 0):.1f} s: "
-            + " | ".join(ptxas))
+            + " | ".join(ptxas[:6]) + (" | ..." if len(ptxas) > 6 else ""))
 
     log("[3] kernels vs plain versions on the card")
     k1_err = check_k1()
+    k2_err, k2_scaled = check_k2()
+    k5_err = check_k5()
 
-    log("[4] main path")
+    log("[4] serving path")
     result: dict = {}
     main_path(result)
 
-    log("[5] times (CUDA events, mean of 10 after 2 warm-up)")
-    k1_times = time_k1()
+    log("[5] training path")
+    train_path(result)
 
-    meta = swin_attn.KERNEL
-    line = {"kernels": [dict(
-        name=meta["name"], route=meta["route"], source=meta["source"],
-        replaces=meta["replaces"], launches=result["launches"],
-        max_abs_err=k1_err,
-        ms=k1_times["total"]["ms"], plain_ms=k1_times["total"]["plain_ms"],
-        bound_ms=k1_times["total"]["bound_ms"],
-        bound_by=("bytes" if k1_times["total"]["bytes_ms"]
-                  > k1_times["total"]["ops_ms"] else "operations"),
-        library_ms=k1_times["total"]["library_ms"],
-        library="composite: F.layer_norm + F.linear + "
-                "F.scaled_dot_product_attention + F.linear",
-        per="one SwinUnet forward at bc 256, 128 windows (12 launches)",
-        per_case=k1_times["per_case"])],
+    log("[6] training correctness")
+    train_correctness(result)
+
+    log("[7] times (CUDA events, mean of 10 after 2 warm-up)")
+    k1_times = time_k1()
+    k2_times = time_k2()
+    k5_times = time_k5()
+
+    tl = result["train"]["launches"]
+    line = {"kernels": [
+        kernel_entry(swin_attn.KERNEL, result["launches"], k1_err, k1_times,
+                     "composite: F.layer_norm + F.linear + "
+                     "F.scaled_dot_product_attention + F.linear",
+                     "one SwinUnet forward at bc 256, 128 windows "
+                     "(12 launches)", launches_train=tl["K1"]),
+        kernel_entry(swin_attn.BWD_KERNEL, tl["K2"], k2_err, k2_times,
+                     "composite: autograd backward of F.layer_norm + "
+                     "F.linear + F.scaled_dot_product_attention + F.linear",
+                     f"one SwinUnet train step at p 224, batch {B_TRAIN} "
+                     "(12 launches)", max_scaled_err=k2_scaled),
+        kernel_entry(augment.KERNEL, tl["K5"], k5_err, k5_times,
+                     "composite: torch.flip / torch.rot90 per draw group, "
+                     "then the contrast and normalisation ops",
+                     f"one training chunk of {B_CHUNK} patches 224x224x3 "
+                     "(1 launch)")],
         "scene_tiles_per_s": result["scene_tiles_per_s"],
         "serve_rasters_per_s": result["serve_rasters_per_s"],
         "serve_launches": result["serve_launches"],
         "forward": result["forward"],
         "f32_label_agreement": result["f32_agreement"],
+        "train": result["train"],
+        "train_correctness": result["correctness"],
         "seconds": time.perf_counter() - t_start}
     log(smi)
     log(json.dumps(line))

@@ -7,7 +7,9 @@ imports neither ``jax`` nor anything of ``cvcs_tpu``. Entry points run on
 than running on the CPU unasked.
 
 Ported so far: SwinUnet whole-scene window inference (``infer.engine``,
-``cli.predict``, ``cli.serve``), with the Swin fused window-attention
-forward as a hand-written CUDA kernel (``ops.swin_attn``). ROADMAP.md
+``cli.predict``, ``cli.serve``) and SwinUnet training (``cli.train``,
+``train``, ``data.loader``, ``metrics``), with the Swin fused
+window-attention forward and backward (``ops.swin_attn``) and the fused
+augmentation (``ops.augment``) as hand-written CUDA kernels. ROADMAP.md
 lists what is still to port.
 """

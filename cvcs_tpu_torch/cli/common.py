@@ -42,13 +42,13 @@ def model_dtypes(config: dict) -> dict:
     return dict(dtype=policy_from_config(config.get("precision")).compute_dtype)
 
 
-def build_net(config: dict, device=None):
+def build_net(config: dict, device=None, seed: int = 0):
     """Model + spec from config names, seeded-initialised on ``device``;
     like the reference, builds with num_classes + 1 for background."""
     name = config["net"]
     num_classes = int(config.get("num_classes", 15)) + 1
     model, spec = build_model(
-        name, num_classes, device=device,
+        name, num_classes, device=device, seed=seed,
         in_channels=int(config.get("in_channels", 3)),
         **model_dtypes(config))
     return model, spec, num_classes

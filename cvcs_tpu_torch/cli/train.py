@@ -1,0 +1,161 @@
+"""``python -m cvcs_tpu_torch.cli.train <config.yaml>`` (port of
+``cvcs_tpu/cli/train.py``): chunked training with augmentation, the
+class-balanced loss, per-epoch validation, periodic confusion-matrix
+evaluation, checkpoint and resume.
+
+Runs on the card unless the config says ``device: cpu``. Keys of paths
+the port does not carry yet raise ``NotImplementedError`` naming their
+ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import sys
+import traceback
+
+import torch
+
+from cvcs_tpu_torch.cli import common
+from cvcs_tpu_torch.config.loader import TRAIN_KEYS, validate_keys
+from cvcs_tpu_torch.data.augment import AugmentConfig
+from cvcs_tpu_torch.data.loader import ChunkLoader
+from cvcs_tpu_torch.data.palette import LABELS
+from cvcs_tpu_torch.ops.losses import build_loss
+from cvcs_tpu_torch.train.checkpoint import latest_checkpoint
+from cvcs_tpu_torch.train.loop import TrainConfig, Trainer
+from cvcs_tpu_torch.train.optim import build_optimizer
+from cvcs_tpu_torch.train.state import TrainState, param_count
+
+# train config keys of paths the port does not run yet -> the ROADMAP item
+UNPORTED_TRAIN_KEYS = {
+    "remat": "block rematerialisation is not yet ported (ROADMAP.md Queue 1 "
+             "item 1, with the U-Nets that have it)",
+    "load_context": "context windows are not yet ported (ROADMAP.md Queue 1 "
+                    "item 4)",
+    "random_tps": "random_tps crops are not yet ported (ROADMAP.md Queue 1 "
+                  "item 4)",
+    "debug_plot": "debug plots are not yet ported (ROADMAP.md Queue 1 "
+                  "item 13)",
+    "async_checkpoints": "asynchronous checkpoints are not yet ported "
+                         "(ROADMAP.md Queue 1 item 6)",
+    "profile_dir": "profiling is not yet ported (ROADMAP.md Queue 1 "
+                   "item 13)",
+}
+
+
+def reject_unported_train_keys(config: dict, device: torch.device) -> None:
+    for key, why in UNPORTED_TRAIN_KEYS.items():
+        if config.get(key):
+            raise NotImplementedError(f"config key {key!r}: {why}")
+    mesh = config.get("mesh") or {}
+    # ``data: null`` means every device; one device is no mesh at all
+    n_data = mesh.get("data") or (torch.cuda.device_count()
+                                  if device.type == "cuda" else 1)
+    if mesh and (n_data > 1 or mesh.get("spatial", 1) > 1):
+        raise NotImplementedError(
+            "config key 'mesh': multi-device training is not yet ported "
+            "(ROADMAP.md Queue 1 item 14)")
+
+
+def build_trainer(config: dict) -> Trainer:
+    validate_keys(config, TRAIN_KEYS,
+                  {"train", "validation", "net", "epochs", "chunk_size",
+                   "patch_size", "batch_size", "loss", "opt",
+                   "checkpoint_directory"}, "train")
+    device = common.device_context(config)
+    reject_unported_train_keys(config, device)
+    aug_flag = config.get("augmentation")
+    if aug_flag == "fused":
+        augment = AugmentConfig(mode="fused")
+    elif aug_flag:
+        augment = AugmentConfig()
+    else:
+        augment = None
+    seed = int(config.get("seed", 0))
+    in_channels = int(config.get("in_channels", 3))
+    loader_train = ChunkLoader(
+        config["train"], config["chunk_size"],
+        patch_size=config["patch_size"],
+        random_shift=bool(config.get("random_shift")), augment=augment,
+        in_channels=in_channels, seed=seed, device=device)
+    loader_val = ChunkLoader(
+        config["validation"],
+        config.get("validation_chunk_size", config["chunk_size"]),
+        patch_size=config["patch_size"], in_channels=in_channels,
+        seed=seed + 1, device=device)
+    if config.get("debug"):
+        # debug: 2 train scenes, 1 validation scene
+        loader_train.specify([0, 1])
+        loader_val.specify([0])
+
+    model, spec, num_classes = common.build_net(config, device, seed=seed)
+    optimizer = build_optimizer(config["opt"], model.parameters(),
+                                epochs=config["epochs"])
+    state = TrainState(model, optimizer)
+    for name, value in (
+            ("parameters", param_count(model)),
+            ("Patch size", loader_train.patch_size),
+            ("Tpe", loader_train.tpi),
+            ("Training patches", len(loader_train.idxs) * loader_train.tpi),
+            ("Validation patches", len(loader_val.idxs) * loader_val.tpi)):
+        print(f"{name:>20} : {value}", flush=True)
+
+    weights = None
+    if config["loss"] == "wCEL":
+        print("Computing class weights, it might take several minutes...",
+              flush=True)
+        weights = loader_train.class_weights(
+            num_classes, bool(config.get("ignore_background")))
+        for i, w in enumerate(weights):
+            print(f"{LABELS.get(i, str(i)):>22} : {float(w)}", flush=True)
+    loss_fn = build_loss(config["loss"], weights=weights,
+                         ignore_background=bool(
+                             config.get("ignore_background")),
+                         device=device)
+
+    train_cfg = TrainConfig(
+        epochs=config["epochs"],
+        batch_size=config["batch_size"],
+        checkpoint_directory=config["checkpoint_directory"],
+        freq=config.get("freq", 1),
+        precision_evaluation_freq=config.get("precision_evaluation_freq", 10),
+        num_classes=int(config.get("num_classes", 15)),
+        ignore_background=bool(config.get("ignore_background")),
+        verbose=bool(config.get("verbose")),
+        metrics_log=config.get("metrics_log"),
+        bn_exact_stats=bool(config.get("bn_exact_stats", True)),
+        eval_downscale=int(config.get("eval_downscale", 1)),
+        keep_checkpoints=(int(config["keep_checkpoints"])
+                          if config.get("keep_checkpoints") else None),
+        grad_accum=int(config.get("grad_accum", 1)))
+    if (train_cfg.eval_downscale > 1
+            and int(config["patch_size"]) % train_cfg.eval_downscale):
+        raise ValueError(f"eval_downscale={train_cfg.eval_downscale} must "
+                         f"divide patch_size={config['patch_size']}")
+    trainer = Trainer(spec, state, loss_fn, loader_train, loader_val,
+                      train_cfg)
+    ckpt = config.get("load_checkpoint")
+    if ckpt == "auto":
+        ckpt = latest_checkpoint(config["checkpoint_directory"])
+        if ckpt is None:
+            print("No checkpoint to resume from; starting fresh", flush=True)
+    if ckpt:
+        trainer.resume(ckpt)
+    return trainer
+
+
+def main(argv=None) -> int:
+    config = common.resolve_config_arg(argv or sys.argv)
+    try:
+        trainer = build_trainer(config)
+    except Exception:
+        traceback.print_exc()
+        print("Error in setting up training.")
+        return 1
+    trainer.install_preemption_handler()
+    trainer.train()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

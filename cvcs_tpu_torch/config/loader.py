@@ -1,5 +1,5 @@
-"""YAML config loading and key validation (port of the inference and
-serve parts of ``cvcs_tpu/config/loader.py``)."""
+"""YAML config loading and key validation (port of the training,
+inference and serve parts of ``cvcs_tpu/config/loader.py``)."""
 
 from __future__ import annotations
 
@@ -7,6 +7,19 @@ from pathlib import Path
 
 import yaml
 
+TRAIN_KEYS = {
+    "debug", "debug_plot", "verbose", "train", "validation", "test",
+    "checkpoint_directory", "load_checkpoint", "device", "net",
+    "load_context", "epochs", "chunk_size", "validation_chunk_size",
+    "patch_size", "batch_size", "random_shift", "augmentation",
+    "random_tps", "loss", "opt", "ignore_background", "freq",
+    "precision_evaluation_freq", "num_classes", "load_color_mask",
+    # framework extensions
+    "precision", "mesh", "seed", "in_channels", "profile_dir",
+    "steps_per_call", "metrics_log", "bn_exact_stats",
+    "async_checkpoints", "eval_downscale", "keep_checkpoints", "remat",
+    "grad_accum",
+}
 INFER_KEYS = {
     "dataset", "net", "load_checkpoint", "patch_size", "border_correction",
     "range", "mask_only", "out_image", "num_classes", "device", "output",

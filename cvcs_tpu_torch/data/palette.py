@@ -7,6 +7,14 @@ import numpy as np
 
 NUM_CLASSES = 16  # 15 land-cover classes + background
 
+LABELS = {
+    0: "unlabeled", 1: "industrial land", 2: "urban residential",
+    3: "rural residential", 4: "traffic land", 5: "paddy field",
+    6: "irrigated cropland", 7: "dry cropland", 8: "garden plot",
+    9: "arbor forest", 10: "shrub land", 11: "natural grassland",
+    12: "artificial grassland", 13: "river", 14: "lake", 15: "pond",
+}
+
 # label -> RGB
 PALETTE = np.array(
     [

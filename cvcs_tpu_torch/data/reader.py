@@ -1,5 +1,5 @@
-"""Host-side scene raster reader (port of ``SceneDataset`` in
-``cvcs_tpu/data/reader.py``), decoding with PIL.
+"""Host-side scene raster reader (port of ``cvcs_tpu/data/reader.py``),
+decoding with PIL, and the class statistics of a dataset's index masks.
 
 GID15 directory layout:
 
@@ -37,6 +37,7 @@ class SceneDataset:
         if not self.image_paths:
             raise FileNotFoundError(f"no scenes under {self.image_dir}")
         self._shape: tuple[int, int] | None = None
+        self._class_counts: dict[int, np.ndarray] = {}
 
     def __len__(self) -> int:
         return len(self.image_paths)
@@ -82,3 +83,35 @@ class SceneDataset:
         arr = self._decode(self.index_mask_path(i))
         return arr[..., 0] if arr.ndim == 3 else arr
 
+    def class_counts(self, num_classes: int) -> np.ndarray:
+        """Per-class pixel counts over all index masks, cached per
+        instance."""
+        if num_classes not in self._class_counts:
+            counts = np.zeros(num_classes, dtype=np.int64)
+            for i in range(len(self)):
+                mask = self.load_index_mask(i)
+                counts += np.bincount(mask.reshape(-1),
+                                      minlength=num_classes)[:num_classes]
+            self._class_counts[num_classes] = counts
+        return self._class_counts[num_classes]
+
+
+def class_weights(counts: np.ndarray,
+                  ignore_background: bool = False) -> np.ndarray:
+    """Class-balanced weights w_j = total / (bins * count_j); zero-count
+    classes get 0; with ``ignore_background`` class 0 is left out of the
+    statistics and weighted 0."""
+    counts = np.asarray(counts, dtype=np.float64)
+    active = counts[1:] if ignore_background else counts
+    total = active.sum()
+    bins = len(active)
+    w = np.where(active > 0, total / (bins * np.maximum(active, 1)), 0.0)
+    if ignore_background:
+        w = np.concatenate([[0.0], w])
+    return w.astype(np.float32)
+
+
+def class_priors(counts: np.ndarray) -> np.ndarray:
+    """total / count_j."""
+    counts = np.asarray(counts, dtype=np.float64)
+    return (counts.sum() / counts).astype(np.float32)

@@ -1,5 +1,6 @@
 """Layer helpers with flax numerics on NHWC tensors, and the UNet
-``DecodeBlock`` (port of ``cvcs_tpu/models/blocks.py:162-188``).
+``DecodeBlock`` (port of ``cvcs_tpu/models/blocks.py:162-188``), with
+BatchNorm in eval and train mode (``blocks.py:35-102``).
 
 Parameters live in ``nn.Conv2d`` / ``nn.LayerNorm`` / ``nn.BatchNorm2d``
 holders, so state-dict names are torch's; the arithmetic is written out
@@ -78,9 +79,34 @@ def batch_norm_eval(x, bn: nn.BatchNorm2d) -> torch.Tensor:
                    bn.bias, bn.eps, x.dtype)
 
 
+BN_MOMENTUM = 0.9    # flax convention: running = 0.9 * running + 0.1 * batch
+
+
+def batch_norm_train(x, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """BatchNorm on batch statistics over the last (channel) axis, the
+    JAX package's ``BatchNorm`` in train mode: f32 statistics with flax's
+    fast variance max(E[x^2] - E[x]^2, 0), normalisation with that biased
+    variance (eps from ``bn``, 1e-5), and the running-stats EMA (momentum
+    0.1 in torch's terms) with the running variance updated from the
+    UNBIASED variance (factor n / (n - 1)), as torch does."""
+    xf = x.float()
+    axes = tuple(range(x.dim() - 1))
+    mean = xf.mean(axes)
+    var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+    with torch.no_grad():
+        n = xf.numel() // xf.shape[-1]
+        correction = n / max(n - 1, 1)
+        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
+                              + (1 - BN_MOMENTUM) * mean)
+        bn.running_var.copy_(BN_MOMENTUM * bn.running_var
+                             + (1 - BN_MOMENTUM) * var * correction)
+    return _affine(xf, mean, var, bn.weight, bn.bias, bn.eps, x.dtype)
+
+
 class DecodeBlock(nn.Module):
     """2 x [conv3x3 -> ReLU -> BN] (the reference's swapped ReLU/BN order),
-    BN in eval mode on running stats, eps 1e-5."""
+    eps 1e-5; BN on batch statistics (updating the running ones) under
+    ``train()``, on the running statistics under ``eval()``."""
 
     def __init__(self, cin: int, features: int):
         super().__init__()
@@ -90,8 +116,9 @@ class DecodeBlock(nn.Module):
         self.bn2 = nn.BatchNorm2d(features)
 
     def decode(self, x: torch.Tensor) -> torch.Tensor:
+        norm = batch_norm_train if self.training else batch_norm_eval
         for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2)):
-            x = batch_norm_eval(torch.relu(conv_nhwc(x, conv, padding=1)), bn)
+            x = norm(torch.relu(conv_nhwc(x, conv, padding=1)), bn)
         return x
 
     forward = decode

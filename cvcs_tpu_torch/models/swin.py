@@ -13,9 +13,11 @@ are float32. State-dict names are those of the torch twin
 
 Every block whose window is at least 4 runs the pre-MLP half (LN, QKV,
 masked window attention, output projection) through the fused op
-:func:`cvcs_tpu_torch.ops.swin_attn.swin_window_attention` — the CUDA
-kernel on the card. Clamped windows below 4 (maps of 1-3 tokens a side)
-take the einsum path, as in the JAX model.
+:func:`cvcs_tpu_torch.ops.swin_attn.swin_window_attention` — on the card
+the forward kernel, and under autograd the backward kernel too. Clamped
+windows below 4 (maps of 1-3 tokens a side) take the einsum path, as in
+the JAX model. Under ``train()`` the decoder's BatchNorm runs on batch
+statistics and updates the running ones.
 """
 
 from __future__ import annotations

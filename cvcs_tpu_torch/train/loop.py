@@ -1,0 +1,276 @@
+"""Epoch / chunk / batch training loop (port of ``cvcs_tpu/train/loop.py``).
+
+The reference's ``train.py:104-169``: a per-epoch scene reshuffle, the
+chunk loop, the per-batch loss appended to the training history, the
+per-epoch learning rate and validation loss, a confusion-matrix
+evaluation every ``precision_evaluation_freq`` epochs, a checkpoint every
+``freq`` epochs, and resume.
+
+Steps run one by one (the JAX trainer's ``steps_per_call``, a TPU
+dispatch knob, has no counterpart; the train CLI accepts and ignores the
+key). Losses stay on the device and are read once per chunk, one chunk late:
+chunk c+1's host decode and upload run while chunk c's steps are still
+queued on the card. A non-finite loss halts training
+(``FloatingPointError``). On the preemption signal the loop finishes the
+chunk in flight, writes ``checkpoint{epoch}_preempt`` and returns.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import signal
+import time
+from pathlib import Path
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from cvcs_tpu_torch.data.loader import ChunkLoader
+from cvcs_tpu_torch.metrics import confusion, scores
+from cvcs_tpu_torch.train import checkpoint as ckpt_lib
+from cvcs_tpu_torch.train.state import TrainState
+from cvcs_tpu_torch.train.step import (loss_step, predict_step, stats_step,
+                                       train_step)
+
+
+def downscale_batch(image: torch.Tensor, mask: torch.Tensor, ds: int):
+    """1/ds-resolution eval batch: box-mean of the uint8 image, rounded;
+    nearest subsample of the mask."""
+    b, h, w, c = image.shape
+    img = image.to(torch.float32).reshape(b, h // ds, ds, w // ds, ds, c)
+    img = img.mean(dim=(2, 4))
+    return torch.round(img).to(torch.uint8), mask[:, ::ds, ::ds]
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """The reference's train-config vocabulary."""
+
+    epochs: int
+    batch_size: int
+    checkpoint_directory: str
+    freq: int = 1                        # checkpoint every N epochs
+    precision_evaluation_freq: int = 10  # confusion eval every N epochs
+    num_classes: int = 15                # foreground classes (bg added)
+    ignore_background: bool = False
+    verbose: bool = False
+    metrics_log: str | None = None       # JSONL per-epoch metrics
+    # True: BN running statistics update every step (the reference);
+    # False: once per chunk from its last batch (same losses and grads)
+    bn_exact_stats: bool = True
+    keep_checkpoints: int | None = None
+    grad_accum: int = 1
+    eval_downscale: int = 1
+
+
+class Trainer:
+    """Drives training of one model over train/validation ChunkLoaders."""
+
+    def __init__(self, spec, state: TrainState, loss_fn: Callable,
+                 train_loader: ChunkLoader, val_loader: ChunkLoader,
+                 config: TrainConfig,
+                 log: Callable[[str], None] = lambda s: print(s, flush=True)):
+        if config.grad_accum < 1:
+            raise ValueError(f"grad_accum={config.grad_accum} must be >= 1")
+        if config.grad_accum > 1 and config.batch_size % config.grad_accum:
+            raise ValueError(f"batch_size={config.batch_size} must be "
+                             f"divisible by grad_accum={config.grad_accum}")
+        self.spec = spec
+        self.state = state
+        self.loss_fn = loss_fn
+        self.train_loader = train_loader
+        self.val_loader = val_loader
+        self.config = config
+        self.log = log
+        self.training_loss_values: list[float] = []
+        self.validation_loss_values: list[float] = []
+        self.conf_history: list[Any] = []
+        self.last_epoch = 0
+        self._preempted = False
+
+    def install_preemption_handler(self, signums=None) -> None:
+        """On the signal (SIGTERM by default): finish the chunk in flight,
+        write ``checkpoint{epoch}_preempt`` and return from :meth:`train`;
+        a signal during the end-of-epoch work exits after that epoch's
+        boundary checkpoint."""
+        for s in (signums or (signal.SIGTERM,)):
+            signal.signal(s, lambda *_: setattr(self, "_preempted", True))
+
+    def resume(self, path: str | Path) -> None:
+        """Restore the state and histories; the checkpoint's batch_size
+        overrides the config (the reference's behaviour)."""
+        self.state, meta = ckpt_lib.load_checkpoint(path, self.state)
+        self.training_loss_values = meta.get("training_loss_values", [])
+        self.validation_loss_values = meta.get("validation_loss_values", [])
+        self.last_epoch = int(meta.get("epoch", -1)) + 1
+        if meta.get("batch_size"):
+            self.config.batch_size = int(meta["batch_size"])
+            if (self.config.grad_accum > 1
+                    and self.config.batch_size % self.config.grad_accum):
+                self.log(f"WARNING: checkpoint batch_size "
+                         f"{self.config.batch_size} is not divisible by "
+                         f"grad_accum={self.config.grad_accum}; disabling "
+                         "gradient accumulation")
+                self.config.grad_accum = 1
+        self.log(f"Resumed from {path} at epoch {self.last_epoch} "
+                 f"(batch_size={self.config.batch_size})")
+
+    def _save(self, epoch: int, tag: str = "", confusions: bool = True):
+        cfg = self.config
+        hist = self.conf_history if confusions else None
+        path = ckpt_lib.save_checkpoint(
+            cfg.checkpoint_directory, epoch, self.state,
+            self.training_loss_values, self.validation_loss_values,
+            cfg.batch_size, self.state.optimizer.name,
+            conf_flat=None if hist is None else [np.asarray(m).tolist()
+                                                 for m in hist],
+            conf_normalized=None if hist is None else [
+                confusion.normalize_rows(m).tolist() for m in hist],
+            tag=tag)
+        if cfg.keep_checkpoints:
+            for old in ckpt_lib.prune_checkpoints(cfg.checkpoint_directory,
+                                                  cfg.keep_checkpoints):
+                self.log(f"Pruned {old.name}")
+        return path
+
+    def _harvest(self, losses: list[torch.Tensor], epoch: int) -> None:
+        """Read a chunk's losses to the host (one synchronisation) and
+        halt on a non-finite one."""
+        if not losses:
+            return
+        flat = torch.stack(losses).cpu().numpy()
+        self.training_loss_values += [float(v) for v in flat]
+        if not np.isfinite(flat).all():
+            i = int(np.argmax(~np.isfinite(flat)))
+            step = len(self.training_loss_values) - len(flat) + i
+            raise FloatingPointError(
+                f"non-finite training loss ({flat[i]}) at epoch {epoch + 1}, "
+                f"global step {step + 1}: training diverged (check lr/loss "
+                "config); resume from the last checkpoint with a safer "
+                "schedule")
+
+    def train(self) -> TrainState:
+        cfg = self.config
+        bs = cfg.batch_size
+        for epoch in range(self.last_epoch, cfg.epochs):
+            self.log(f"Started epoch {epoch + 1}")
+            t_epoch = time.time()
+            lr = self.state.optimizer.set_epoch(epoch)
+            self.train_loader.shuffle()
+            n_patches = 0
+            n_train_before = len(self.training_loss_values)
+            pending = None
+            for c in range(len(self.train_loader)):
+                chunk = self.train_loader.get_chunk(c)
+                chunk_losses = []
+                last_batch = None
+                for batch in chunk.batches(bs, drop_last=False,
+                                           pad_tail=False):
+                    n = batch.image.shape[0]
+                    accum = cfg.grad_accum if n % cfg.grad_accum == 0 else 1
+                    chunk_losses.append(train_step(
+                        self.state, self.loss_fn, batch.image, batch.mask,
+                        accum=accum, update_stats=cfg.bn_exact_stats))
+                    n_patches += n
+                    last_batch = batch
+                if not cfg.bn_exact_stats and last_batch is not None:
+                    stats_step(self.state, last_batch.image)
+                if pending is not None:
+                    self._harvest(pending, epoch)
+                pending = chunk_losses
+                if self._preempted:
+                    self._harvest(pending, epoch)
+                    self._save(epoch - 1, tag="_preempt", confusions=False)
+                    self.log(f"Preemption save: epoch {epoch + 1} interrupted"
+                             f" after chunk {c + 1}; wrote checkpoint{epoch}"
+                             "_preempt; resume replays this epoch")
+                    return self.state
+            if pending is not None:
+                self._harvest(pending, epoch)
+            epoch_s = time.time() - t_epoch
+            if cfg.verbose and self.training_loss_values:
+                self.log(f"Epoch {epoch + 1}: loss="
+                         f"{self.training_loss_values[-1]:.4f} "
+                         f"({n_patches / max(epoch_s, 1e-9):.1f} patches/s)")
+
+            self.log("Running validation...")
+            n_val_before = len(self.validation_loss_values)
+            self.validation_loss_values += self.validation_loss()
+            if cfg.metrics_log:
+                train_new = self.training_loss_values[n_train_before:]
+                val_new = self.validation_loss_values[n_val_before:]
+                with open(cfg.metrics_log, "a") as f:
+                    f.write(json.dumps({
+                        "epoch": epoch + 1, "lr": lr,
+                        "train_loss": (float(np.mean(train_new))
+                                       if train_new else None),
+                        "val_loss": (float(np.mean(val_new))
+                                     if val_new else None),
+                        "patches_per_s": n_patches / max(epoch_s, 1e-9),
+                        "epoch_s": epoch_s}) + "\n")
+
+            if (epoch + 1) % cfg.precision_evaluation_freq == 0:
+                self.log(f"Evaluating precision after epoch {epoch + 1}")
+                host = self.evaluate(cfg.num_classes + 1,
+                                     downscale=cfg.eval_downscale)
+                scores.print_metrics(host.total)
+                self.conf_history.append(host.total)
+
+            saved = (epoch + 1) % cfg.freq == 0
+            if saved:
+                self._save(epoch)
+                self.log(f"Saved checkpoint {epoch + 1}")
+            if self._preempted:
+                if not saved:
+                    self._save(epoch)
+                self.log(f"Preemption save: stopped after completed epoch "
+                         f"{epoch + 1}; wrote checkpoint{epoch + 1}")
+                return self.state
+
+        self.log("Training Done!")
+        if self.training_loss_values:
+            self.log(f"Reached training loss: {self.training_loss_values[-1]}")
+        if self.validation_loss_values:
+            self.log("Reached validation loss: "
+                     f"{self.validation_loss_values[-1]}")
+        return self.state
+
+    def validation_loss(self) -> list[float]:
+        """Eval-mode loss of every validation batch, the final partial one
+        included."""
+        values = []
+        for c in range(len(self.val_loader)):
+            chunk = self.val_loader.get_chunk(c, shuffle_patches=False)
+            for batch in chunk.batches(self.config.batch_size,
+                                       drop_last=False, pad_tail=False):
+                values.append(loss_step(self.state, self.loss_fn,
+                                        batch.image, batch.mask))
+        return torch.stack(values).cpu().tolist() if values else []
+
+    def evaluate(self, num_classes: int = 16, batch_size: int = 8,
+                 downscale: int = 1) -> confusion.HostConfusion:
+        """Confusion matrix over the validation set, accumulated on the
+        device and folded to the host once per chunk. ``downscale > 1``
+        evaluates 1/N-resolution patches (box-mean image, nearest mask)."""
+        ignore = 0 if self.config.ignore_background else None
+        host = confusion.HostConfusion(num_classes)
+        for c in range(len(self.val_loader)):
+            chunk = self.val_loader.get_chunk(c, shuffle_patches=False)
+            conf = confusion.confusion_matrix(num_classes,
+                                              chunk.images.device)
+            for batch in chunk.batches(batch_size, drop_last=False):
+                image, mask = batch.image, batch.mask
+                if downscale > 1:
+                    image, mask = downscale_batch(image, mask, downscale)
+                pred = predict_step(self.state, image,
+                                    self.spec.returns_logits)
+                if batch.valid is not None:
+                    # padding samples: an out-of-range target drops them
+                    mask = torch.where(batch.valid[:, None, None], mask,
+                                       num_classes + 1)
+                confusion.update_confusion(conf, pred, mask, num_classes,
+                                           ignore)
+            host.fold(conf)
+        return host

@@ -1,0 +1,97 @@
+"""Train, validation-loss, BN-statistics and predict steps (port of
+``cvcs_tpu/train/step.py``).
+
+As in the JAX package (and the reference's ``train.py:114-126``): images
+arrive uint8 and are cast to f32 inside the step, the model runs in train
+mode (BatchNorm on batch statistics, updating the running ones), and the
+loss sees the f32 logits.
+
+``accum = N`` splits the batch into N micro-batches run in order, with the
+JAX package's semantics (``step.py:49-60,88-115``): BatchNorm normalises
+and updates its running statistics per micro-batch, the gradients of the
+micro losses are summed and then divided by N (one optimizer update), and
+the reported loss is the mean of the micro losses.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from cvcs_tpu_torch.train.state import TrainState
+
+
+@contextlib.contextmanager
+def frozen_bn_stats(model: torch.nn.Module, frozen: bool = True):
+    """Keep the BatchNorm running statistics as they were across the
+    block (``update_stats=False`` of the JAX step: BN still normalises
+    with batch statistics, so losses and gradients are unchanged)."""
+    saved = ([(b, b.detach().clone()) for name, b in model.named_buffers()
+              if name.endswith(("running_mean", "running_var"))]
+             if frozen else [])
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for buf, value in saved:
+                buf.copy_(value)
+
+
+def train_step(state: TrainState, loss_fn, image, mask, *, accum: int = 1,
+               update_stats: bool = True) -> torch.Tensor:
+    """One optimizer update on the batch; returns the loss (a 0-d tensor
+    on the device, not synchronised)."""
+    model = state.model
+    model.train()
+    x = image.to(torch.float32)
+    if x.shape[0] % accum:
+        raise ValueError(f"grad_accum={accum} must divide the batch size "
+                         f"{x.shape[0]}")
+    opt = state.optimizer.opt
+    opt.zero_grad(set_to_none=True)
+    with frozen_bn_stats(model, frozen=not update_stats):
+        if accum == 1:
+            loss = loss_fn(model(x), mask)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            loss = torch.zeros((), dtype=torch.float32, device=x.device)
+            for xi, mi in zip(x.chunk(accum), mask.chunk(accum)):
+                micro = loss_fn(model(xi), mi)
+                micro.backward()
+                loss = loss + micro.detach()
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(accum)
+            loss = loss / accum
+    opt.step()
+    state.step += 1
+    return loss
+
+
+@torch.no_grad()
+def stats_step(state: TrainState, image) -> None:
+    """BatchNorm running-statistics refresh: one train-mode forward whose
+    only effect is the statistics update (the companion of
+    ``update_stats=False``)."""
+    state.model.train()
+    state.model(image.to(torch.float32))
+
+
+@torch.inference_mode()
+def loss_step(state: TrainState, loss_fn, image, mask) -> torch.Tensor:
+    """Validation loss: eval-mode forward, loss on the f32 logits."""
+    state.model.eval()
+    return loss_fn(state.model(image.to(torch.float32)), mask)
+
+
+@torch.inference_mode()
+def predict_step(state: TrainState, image,
+                 returns_logits: bool = True) -> torch.Tensor:
+    """Eval-mode forward -> int32 label map."""
+    state.model.eval()
+    out = state.model(image.to(torch.float32))
+    if returns_logits:
+        out = out.argmax(-1)
+    return out.to(torch.int32)

@@ -23,6 +23,18 @@ P = 32
 MIN_AGREEMENT = 0.999
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several pytest workers on one
+    machine, and torch's default of a thread per core oversubscribes it
+    (observed: the train CLI test took 375 s under six workers, 10 s
+    alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def scene(seed=0, h=128, w=192):
     """Blocky synthetic scene: spatial structure, so labels vary."""
     rng = np.random.default_rng(seed)

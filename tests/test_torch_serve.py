@@ -12,6 +12,7 @@ import json
 import jax
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from cvcs_tpu.data.palette import PALETTE
@@ -27,6 +28,18 @@ P, BC = 32, 64
 # the registry's SwinUnetTiny, which the configs below name
 TINY_NET = dict(dims=(32, 64, 128, 256), depths=(1, 1, 2, 1),
                 heads=(1, 2, 4, 8), window=8)
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several pytest workers on one
+    machine, and torch's default of a thread per core oversubscribes it
+    (observed: the train CLI test took 375 s under six workers, 10 s
+    alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -28,6 +28,18 @@ TINY = dict(dims=(8, 16, 32, 64), depths=(1, 1, 2, 1), heads=(1, 2, 4, 8),
 NUM_CLASSES = 5
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several pytest workers on one
+    machine, and torch's default of a thread per core oversubscribes it
+    (observed: the train CLI test took 375 s under six workers, 10 s
+    alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def jax_variables(bands: int, seed: int = 0) -> dict:
     """JAX SwinUNet variables with BN running stats moved off 0/1."""
     model = JaxSwinUNet(num_classes=NUM_CLASSES, dtype=jnp.float32, **TINY)
