@@ -13,7 +13,9 @@ Phases (any failure raises and the script exits non-zero):
    main paths give them (bf16 and f32 instances), within stated
    tolerances: K1 (window-attention forward) at the serving shapes, K2
    (its backward) at the p-224 training stage shapes, K5 (fused
-   augmentation) on a training chunk;
+   augmentation) on a training chunk, K3 and K4 (fused weighted
+   cross-entropy forward sums and backward) at the Unetv2 recipe step's
+   logits and at a ragged size, with K3's repeats bit-equal;
 4. the serving path: full-width SwinUnet (random weights from a fixed
    seed) segments one full-size 6800 x 7200 GID15-like scene
    (``predict_scene``, p 224, border correction 256, 128 windows per
@@ -21,7 +23,9 @@ Phases (any failure raises and the script exits non-zero):
    the launch counters must show every kernel ran; the same scene under
    the f32 policy through the kernel and through the plain attention
    must give the same labels on >= 99.9% of pixels; one forward of 128
-   windows is timed and traced (torch.profiler) for where its time goes;
+   windows is timed and traced (torch.profiler) for where its time goes.
+   Then full-width Unetv2, the serve recipe's model, segments the same
+   scene (the recipe's two-by-four mesh cut to one card);
 5. the training path: ``python -m cvcs_tpu_torch.cli.train``'s ``main``
    trains full-width SwinUnet with the recipe's geometry (p 224, batch
    10, wCEL with ignore_background, SGD2, bf16, random_shift,
@@ -29,13 +33,21 @@ Phases (any failure raises and the script exits non-zero):
    scenes of 1792 x 2240, 160 patches per chunk, 1 validation scene),
    then resumes from the epoch-1 checkpoint; the counters must show K1
    and K2 12 times per step and K5 once per chunk; a few steps are timed
-   (CUDA events) and traced for the share of each kernel;
-6. training correctness: one f32 train step through the kernels and one
-   through the plain versions (called directly by this script) from the
-   same weights and batch agree; a 30-step bf16 fixed-batch overfit
-   lowers the loss;
-7. times (CUDA events, after warm-up) of each kernel beside its bound,
-   its plain version and a library yardstick.
+   (CUDA events) and traced for the share of each kernel. Then the
+   canonical Unetv2 recipe (``configs/train_unetv2.yaml``: the same
+   geometry with ``augmentation: True``) the same way, and one epoch of a
+   ``Trainer`` built the same way with ``build_fused_ce`` as its loss: K3
+   once per train step and per validation batch, K4 once per train step;
+6. training correctness: one f32 SwinUnet train step through the kernels
+   and one through the plain versions (called directly by this script)
+   from the same weights and batch agree; a 30-step bf16 fixed-batch
+   overfit lowers the loss; one f32 Unetv2 step through K3/K4 and one
+   through the eager wCEL agree, parameter updates included (a loss that
+   passes half its gradient must not); a Unetv2 step with ``remat`` equals one
+   without, BN statistics updated once, and both peak memories print;
+7. times (CUDA events, after warm-up; K3 and K4 also their traced device
+   time) of each kernel beside its bound, its plain version and a library
+   yardstick.
 
 The last two lines are a JSON object of per-kernel numbers and the
 result line ``{"ok": true, "device": {...}}``.
@@ -431,6 +443,162 @@ def time_k5() -> dict:
     return r
 
 
+# -- K3 / K4: fused weighted cross-entropy --------------------------------
+NC = 16                            # GID15's 15 classes + background
+# (batch, H, W): the Unetv2 recipe step's logits, and a ragged N
+# (3 x 97 x 113 = 32,883 pixels) that is not a multiple of the block size
+CE_SHAPES = {"step": (B_TRAIN, 224, 224), "ragged": (3, 97, 113)}
+TOL_CE = 1e-5                      # relative; x max(1, |plain|max) for dlogits
+TOL_UPDATE = 5e-2                  # a parameter update vs the eager step's
+
+
+def ce_inputs(shape, seed=0):
+    """f32 logits (N, 16), int32 labels with ~30% class 0 (ignored), 1%
+    void 255 and the rest uniform, and the recipe's class weights
+    (``class_weights`` of the labels' counts, background ignored)."""
+    from cvcs_tpu_torch.data.reader import class_weights
+    from cvcs_tpu_torch.ops import fused_ce
+
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn(*shape, NC, generator=g) * 3
+    labels = torch.randint(1, NC, shape, generator=g, dtype=torch.int32)
+    u = torch.rand(shape, generator=g)
+    labels[u < 0.3] = 0
+    labels[u > 0.99] = 255
+    valid = labels[labels < NC].numpy()
+    w = fused_ce.effective_weights(
+        class_weights(np.bincount(valid.ravel(), minlength=NC), True), NC,
+        0, "cuda")
+    return logits.reshape(-1, NC).cuda(), labels.reshape(-1).cuda(), w
+
+
+def check_k3k4() -> dict:
+    """K3 and K4 vs their plain versions at both shapes (f32): loss_sum,
+    wsum and the loss within 1e-5 relative; dlogits within
+    1e-5 * max(1, |plain|max) and, because dlogits of a mean over 5e5
+    pixels are ~1e-6, within 1e-5 * |plain|max too; K3's repeats
+    bit-equal."""
+    from cvcs_tpu_torch.ops import fused_ce
+
+    out = dict(k3_err=0.0, k4_err=0.0, k4_rel=0.0)
+    for name, shape in CE_SHAPES.items():
+        x, lab, w = ce_inputs(shape)
+        loss_sum, wsum, loss = fused_ce._fwd_launch(x, lab, w)
+        g = torch.ones((), device="cuda")
+        dx = fused_ce._bwd_launch(x, lab, w, g, wsum)
+        torch.cuda.synchronize()
+        want_sum, want_w = fused_ce.ce_sums_plain(x, lab, w)
+        want_dx = fused_ce.ce_grad_plain(x, lab, w,
+                                         g / want_w.clamp(min=1e-12))
+        rel = [abs(float(a) - float(b)) / abs(float(b)) for a, b in
+               ((loss_sum, want_sum), (wsum, want_w),
+                (loss, want_sum / want_w))]
+        err = float((dx - want_dx).abs().max())
+        big = float(want_dx.abs().max())
+        repeats = [fused_ce._fwd_launch(x, lab, w) for _ in range(2)]
+        bit_equal = all(torch.equal(a, b) for r in repeats
+                        for a, b in zip(r, (loss_sum, wsum, loss)))
+        ok = (max(rel) <= TOL_CE and err <= TOL_CE * max(1.0, big)
+              and err <= TOL_CE * big and bit_equal
+              and bool(torch.isfinite(dx).all()))
+        n = x.shape[0]
+        log(f"  K3 {name:>6} N={n} C={NC}: loss {float(loss):.6f} vs plain "
+            f"{float(want_sum / want_w):.6f}; relative errors loss_sum "
+            f"{rel[0]:.2e}, wsum {rel[1]:.2e}, loss {rel[2]:.2e} (tol "
+            f"{TOL_CE:.0e}); 3 runs bit-equal: {bit_equal}")
+        log(f"  K4 {name:>6} N={n} C={NC}: dlogits max abs err {err:.3e}, "
+            f"|plain|max {big:.3e}, err/|plain|max {err / big:.2e} (tol "
+            f"{TOL_CE:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K3/K4 {name}: {rel}, {err}, {bit_equal}")
+        out["k3_err"] = max(out["k3_err"], abs(float(loss) - float(
+            want_sum / want_w)))
+        out["k4_err"] = max(out["k4_err"], err)
+        out["k4_rel"] = max(out["k4_rel"], err / big)
+        del x, lab, dx, want_dx
+    return out
+
+
+def ce_library(x, lab, w):
+    """Yardstick the port never calls: ``F.cross_entropy`` on NCHW logits
+    with ``weight`` and ``ignore_index=0`` (void labels mapped to the
+    ignored 0, which it needs in range); returns (forward, backward)
+    callables, the backward an autograd replay of the forward's graph."""
+    b, h, wd = CE_SHAPES["step"]
+    valid = (lab >= 0) & (lab < NC)
+    lib_lab = torch.where(valid, lab, 0).long().view(b, h, wd)
+
+    def fwd(t):
+        return F.cross_entropy(t.view(b, h, wd, NC).permute(0, 3, 1, 2),
+                               lib_lab, weight=w, ignore_index=0)
+
+    leaf = x.detach().clone().requires_grad_()
+    loss = fwd(leaf)
+    return (lambda: fwd(x),
+            lambda: torch.autograd.grad(loss, leaf, retain_graph=True))
+
+
+def time_k3k4() -> tuple[dict, dict]:
+    """K3 and K4 at the recipe step's shape: kernel (CUDA events, and the
+    device time of a traced loop), plain and library times; bound from
+    the bytes the function needs (each input it uses read once, each
+    output written once) and its f32 operations (about 5 per logit read
+    for K3, 8 for K4). A pixel of weight 0 (the ignored class,
+    void) adds nothing to the loss and has a zero dlogits row: its logits
+    are not needed, so the bound counts the logits of this run's
+    nonzero-weight pixels only, and every label."""
+    from cvcs_tpu_torch.ops import fused_ce
+
+    before = fused_ce.launches, fused_ce.bwd_launches
+    x, lab, w = ce_inputs(CE_SHAPES["step"], seed=1)
+    g = torch.ones((), device="cuda")
+    _, wsum, _ = fused_ce._fwd_launch(x, lab, w)
+    scale = g / wsum.clamp(min=1e-12)
+    lib_fwd, lib_bwd = ce_library(x, lab, w)
+    k3 = dict(ms=cuda_ms(lambda: fused_ce._fwd_launch(x, lab, w)),
+              plain_ms=cuda_ms(lambda: fused_ce.ce_sums_plain(x, lab, w)),
+              library_ms=cuda_ms(lib_fwd))
+    k4 = dict(ms=cuda_ms(lambda: fused_ce._bwd_launch(x, lab, w, g, wsum)),
+              plain_ms=cuda_ms(lambda: fused_ce.ce_grad_plain(x, lab, w,
+                                                              scale)),
+              library_ms=cuda_ms(lib_bwd))
+    for r, key, fn in (
+            (k3, "K3", lambda: fused_ce._fwd_launch(x, lab, w)),
+            (k4, "K4", lambda: fused_ce._bwd_launch(x, lab, w, g, wsum))):
+        # the events time of a back-to-back loop includes the wrapper's
+        # host cost; the trace gives the kernels' own device time
+        r["device_ms"] = device_profile(
+            lambda: [fn() for _ in range(10)])[key] / 10
+    lib_loss = float(lib_fwd())
+    k3_loss = float(fused_ce._fwd_launch(x, lab, w)[2])
+    fused_ce.launches, fused_ce.bwd_launches = before  # not the path's
+    log(f"  F.cross_entropy's loss {lib_loss:.6f}, K3's {k3_loss:.6f}")
+    assert abs(lib_loss - k3_loss) <= TOL_CE * abs(lib_loss)
+    n = x.shape[0]
+    valid = (lab >= 0) & (lab < NC)
+    n_w = int((torch.where(valid, w[lab.clamp(0, NC - 1).long()], 0.0)
+               != 0).sum())
+    read_bytes = n_w * NC * 4 + n * 4 + NC * 4      # logits, labels, w
+    for r, nbytes, ops in ((k3, read_bytes, 5 * n_w * NC),
+                           (k4, read_bytes + n * NC * 4, 8 * n_w * NC)):
+        r["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        r["ops_ms"] = ops / PEAK_FLOPS[torch.float32] * 1e3
+        r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
+        r["bound_bytes"] = nbytes
+    log(f"  pixels of nonzero weight: {n_w} of {n} ({n_w / n * 100:.2f}%); "
+        f"bytes needed: K3 {k3['bound_bytes']}, K4 {k4['bound_bytes']}")
+    for name, r in (("K3", k3), ("K4", k4)):
+        log(f"  {name} N={n} C={NC} f32: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, F.cross_entropy "
+            f"{'forward' if name == 'K3' else 'backward'} "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes "
+            f"{r['bytes_ms']:.4f}, operations {r['ops_ms']:.4f}; kernel at "
+            f"{r['bound_ms'] / r['ms'] * 100:.1f}% of bound); device time "
+            f"per launch {r['device_ms']:.4f} ms (traced, "
+            f"{r['bound_ms'] / r['device_ms'] * 100:.1f}% of bound)")
+    return k3, k4
+
+
 # -- the serving path ----------------------------------------------------------
 def synthetic_scene(h, w, seed):
     """Blocky uint8 scene with texture: labels vary across it."""
@@ -438,6 +606,10 @@ def synthetic_scene(h, w, seed):
     base = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3), np.uint8)
     img = np.repeat(np.repeat(base, 16, 0), 16, 1)[:h, :w] // 2
     return img + rng.integers(0, 64, (h, w, 3), np.uint8)
+
+
+# cuDNN / cuBLAS kernel names: the convolutions (and GEMMs) of a trace
+CONV_NAMES = ("xmma", "cudnn", "conv", "gemm", "cutlass")
 
 
 def device_profile(fn) -> dict:
@@ -454,7 +626,9 @@ def device_profile(fn) -> dict:
         torch.cuda.synchronize()
     spans, by_name = [], {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        # user annotations (e.g. the optimizer step's range) span kernels
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         spans.append((e.time_range.start, e.time_range.end))
         tot = by_name.setdefault(e.name, [0.0, 0])
@@ -472,17 +646,20 @@ def device_profile(fn) -> dict:
     def ms_of(key):
         return sum(t for name, (t, _) in by_name.items() if key in name)
 
-    return dict(by_name=by_name, span_ms=span_ms,
+    conv_ms = sum(t for name, (t, _) in by_name.items()
+                  if any(k in name for k in CONV_NAMES) and "swin" not in name)
+    return dict(by_name=by_name, span_ms=span_ms, conv_ms=conv_ms,
                 kernel_ms=sum(t for t, _ in by_name.values()),
                 idle_share=1 - busy_us / 1e3 / span_ms,
                 K1=ms_of("swin_attn_fwd"), K2=ms_of("swin_bwd_"),
+                K3=ms_of("::ce_fwd_"), K4=ms_of("::ce_bwd"),
                 K5=ms_of("augment_kernel"))
 
 
-def forward_breakdown(model) -> dict:
-    """Where one forward's time goes: a SwinUnet forward of B bc-256
-    windows timed with CUDA events, then traced once with torch.profiler
-    for the device time of each kernel and the device's idle share."""
+def forward_breakdown(model, name: str = "SwinUnet") -> dict:
+    """Where one forward's time goes: a forward of B bc-256 windows timed
+    with CUDA events, then traced once with torch.profiler for the device
+    time of each kernel and the device's idle share."""
     g = torch.Generator().manual_seed(2)
     x = torch.randint(0, 256, (B, 256, 256, 3), generator=g,
                       dtype=torch.uint8).cuda().float()
@@ -490,24 +667,28 @@ def forward_breakdown(model) -> dict:
         ms = cuda_ms(lambda: model(x), iters=5, warmup=1)
         prof = device_profile(lambda: model(x))
     by_name = prof["by_name"]
-    k1_launches = sum(n for name, (_, n) in by_name.items()
-                      if "swin_attn_fwd" in name)
+    k1_launches = sum(n for k, (_, n) in by_name.items()
+                      if "swin_attn_fwd" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    log(f"  forward bf16, {B} windows of 256x256: {ms:.3f} ms (CUDA events); "
-        f"traced: kernels {prof['kernel_ms']:.3f} ms over a "
+    k1 = (f"; K1 {prof['K1']:.3f} ms in {k1_launches} launches = "
+          f"{prof['K1'] / prof['kernel_ms'] * 100:.1f}% of kernel time"
+          if k1_launches else "")
+    log(f"  {name} forward bf16, {B} windows of 256x256: {ms:.3f} ms (CUDA "
+        f"events); traced: kernels {prof['kernel_ms']:.3f} ms over a "
         f"{prof['span_ms']:.3f} ms span, device idle "
-        f"{prof['idle_share'] * 100:.1f}%; K1 {prof['K1']:.3f} ms in "
-        f"{k1_launches} launches = {prof['K1'] / prof['kernel_ms'] * 100:.1f}%"
-        " of kernel time")
-    for name, (t, n) in top:
-        log(f"    {t:9.3f} ms {n:4d}x {name[:90]}")
+        f"{prof['idle_share'] * 100:.1f}%{k1}; convolutions and GEMMs "
+        f"{prof['conv_ms']:.3f} ms = "
+        f"{prof['conv_ms'] / prof['kernel_ms'] * 100:.1f}%")
+    for k, (t, n) in top:
+        log(f"    {t:9.3f} ms {n:4d}x {k[:90]}")
     return dict(ms=ms, kernel_ms=prof["kernel_ms"], span_ms=prof["span_ms"],
-                idle_share=prof["idle_share"], k1_ms=prof["K1"],
+                idle_share=prof["idle_share"], conv_ms=prof["conv_ms"],
+                k1_ms=prof["K1"],
                 k1_launches=k1_launches,
                 top=[dict(name=k[:90], ms=t, count=n) for k, (t, n) in top])
 
 
-def main_path(result: dict) -> None:
+def main_path(result: dict):
     from PIL import Image
 
     from cvcs_tpu_torch.cli import serve as serve_cli
@@ -601,6 +782,40 @@ def main_path(result: dict) -> None:
         f"({int((lab_kernel != lab_plain).sum())} differ)")
     assert agree >= 0.999
     result["f32_agreement"] = agree
+    return scene
+
+
+def unet_scene(result: dict, scene) -> None:
+    """Full-width Unetv2, the serve recipe's model (``configs/serve.yaml``:
+    p 224, border correction 256, bf16; its two-by-four mesh cut to one
+    card), segments the full-size scene; one forward is traced."""
+    from cvcs_tpu_torch.infer import InferenceConfig, SceneSegmenter
+    from cvcs_tpu_torch.models import build_model
+
+    cfg = InferenceConfig(patch_size=224, border_correction=256,
+                          batch_tiles=128, num_classes=16)
+    model, _ = build_model("Unetv2", 16, seed=0, dtype=torch.bfloat16)
+    seg = SceneSegmenter(model, cfg)
+    seg.predict_scene(scene[:1792, :2240])          # warm-up, not counted
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    labels = seg.predict_scene(scene)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    lab = labels.cpu().numpy()
+    classes = np.unique(lab)
+    log(f"  Unetv2 predict_scene 6800x7200x3 bf16: labels {lab.shape} "
+        f"{lab.dtype}, {len(classes)} classes, 960 tiles in {secs:.2f} s = "
+        f"{960 / secs:.1f} tiles/s; hand-written kernel launches "
+        f"{kernel_counts()} (none on this path)")
+    assert lab.shape == (6720, 7168) and lab.dtype == np.uint8
+    assert classes.max() < 16 and len(classes) > 1
+    assert not any(kernel_counts().values())
+    result["unet_scene_tiles_per_s"] = 960 / secs
+    result["unet_forward"] = forward_breakdown(model, "Unetv2")
+    del model, seg, labels
+    torch.cuda.empty_cache()
 
 
 # -- the training path -----------------------------------------------------------
@@ -626,19 +841,22 @@ def synthetic_dataset(root: Path, n: int, seed: int) -> str:
     return str(root)
 
 
-def kernel_counts() -> tuple[int, int, int]:
-    from cvcs_tpu_torch.ops import augment, swin_attn
+def kernel_counts() -> dict:
+    from cvcs_tpu_torch.ops import augment, fused_ce, swin_attn
 
-    return swin_attn.launches, swin_attn.bwd_launches, augment.launches
+    return dict(K1=swin_attn.launches, K2=swin_attn.bwd_launches,
+                K3=fused_ce.launches, K4=fused_ce.bwd_launches,
+                K5=augment.launches)
 
 
 def reset_counts() -> None:
-    from cvcs_tpu_torch.ops import augment, swin_attn
+    from cvcs_tpu_torch.ops import augment, fused_ce, swin_attn
 
     swin_attn.launches = swin_attn.bwd_launches = augment.launches = 0
+    fused_ce.launches = fused_ce.bwd_launches = 0
 
 
-def train_breakdown(trainer) -> dict:
+def train_breakdown(trainer, name: str = "SwinUnet") -> dict:
     """Where a train step's time goes: the mean step timed with CUDA
     events; four steps on a ready chunk traced (kernel shares, device idle
     share); one chunk's load and augmentation traced; and K5's share of a
@@ -653,29 +871,34 @@ def train_breakdown(trainer) -> dict:
     steps = device_profile(lambda: [train_step(state, loss_fn, b.image, b.mask)
                                     for b in batches[1:5]])
     load = device_profile(lambda: loader.get_chunk(0))
-    per_step = {k: steps[k] / 4 for k in ("kernel_ms", "K1", "K2")}
+    kernels = ("K1", "K2", "K3", "K4")
+    per_step = {k: steps[k] / 4 for k in ("kernel_ms", "conv_ms") + kernels}
     cycle_ms = load["kernel_ms"] + STEPS_PER_EPOCH * per_step["kernel_ms"]
-    shares = dict(K1=per_step["K1"] / per_step["kernel_ms"],
-                  K2=per_step["K2"] / per_step["kernel_ms"],
-                  K5_of_chunk_cycle=load["K5"] / cycle_ms)
-    log(f"  train step bf16 B={B_TRAIN} p 224: {step_ms:.3f} ms (CUDA events,"
-        f" mean of 5); 4 steps traced: kernels {per_step['kernel_ms']:.3f} ms"
-        f" per step over a {steps['span_ms'] / 4:.3f} ms span, device idle "
-        f"{steps['idle_share'] * 100:.1f}%; K1 {per_step['K1']:.3f} ms = "
-        f"{shares['K1'] * 100:.1f}%, K2 {per_step['K2']:.3f} ms = "
-        f"{shares['K2'] * 100:.1f}% of kernel time")
-    log(f"  chunk load + K5 traced: kernels {load['kernel_ms']:.3f} ms (K5 "
-        f"{load['K5']:.3f} ms) over a {load['span_ms']:.3f} ms span, device "
-        f"idle {load['idle_share'] * 100:.1f}%; K5 = "
+    shares = {k: per_step[k] / per_step["kernel_ms"] for k in kernels}
+    shares["K5_of_chunk_cycle"] = load["K5"] / cycle_ms
+    shares["conv"] = per_step["conv_ms"] / per_step["kernel_ms"]
+    mine = "".join(f", {k} {per_step[k]:.3f} ms = {shares[k] * 100:.2f}%"
+                   for k in kernels if per_step[k])
+    log(f"  {name} train step bf16 B={B_TRAIN} p 224: {step_ms:.3f} ms (CUDA "
+        f"events, mean of 5); 4 steps traced: kernels "
+        f"{per_step['kernel_ms']:.3f} ms per step over a "
+        f"{steps['span_ms'] / 4:.3f} ms span, device idle "
+        f"{steps['idle_share'] * 100:.1f}%; of kernel time: convolutions and "
+        f"GEMMs {per_step['conv_ms']:.3f} ms = {shares['conv'] * 100:.1f}%"
+        f"{mine}")
+    log(f"  chunk load + augmentation traced: kernels {load['kernel_ms']:.3f}"
+        f" ms (K5 {load['K5']:.3f} ms) over a {load['span_ms']:.3f} ms span,"
+        f" device idle {load['idle_share'] * 100:.1f}%; K5 = "
         f"{shares['K5_of_chunk_cycle'] * 100:.2f}% of a chunk cycle's kernel"
         f" time")
     top = sorted(steps["by_name"].items(), key=lambda kv: -kv[1][0])[:10]
-    for name, (t, n) in top:
-        log(f"    {t / 4:9.3f} ms {n // 4:4d}x per step  {name[:80]}")
+    for k, (t, n) in top:
+        log(f"    {t / 4:9.3f} ms {n // 4:4d}x per step  {k[:80]}")
     return dict(step_ms=step_ms, step_kernel_ms=per_step["kernel_ms"],
+                step_conv_ms=per_step["conv_ms"],
                 step_span_ms=steps["span_ms"] / 4,
                 step_idle_share=steps["idle_share"],
-                K1_ms_per_step=per_step["K1"], K2_ms_per_step=per_step["K2"],
+                **{f"{k}_ms_per_step": per_step[k] for k in kernels},
                 chunk_load_kernel_ms=load["kernel_ms"],
                 chunk_load_span_ms=load["span_ms"], K5_ms=load["K5"],
                 shares=shares,
@@ -708,8 +931,10 @@ def train_path(result: dict) -> None:
         rc = train_cli.main(["train", str(path)])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        k1, k2, k5 = kernel_counts()
+        counts = kernel_counts()
+        k1, k2, k5 = counts["K1"], counts["K2"], counts["K5"]
         assert rc == 0, rc
+        assert counts["K3"] == counts["K4"] == 0       # the eager wCEL
         steps = TRAIN_EPOCHS * STEPS_PER_EPOCH
         want_k1 = 12 * (steps + TRAIN_EPOCHS * (VAL_BATCHES + EVAL_BATCHES))
         metrics = [json.loads(x) for x in
@@ -759,6 +984,123 @@ def train_path(result: dict) -> None:
         trainer = train_cli.build_trainer(dict(cfg, load_checkpoint=None))
         result["train"]["breakdown"] = train_breakdown(trainer)
         del trainer
+    torch.cuda.empty_cache()
+
+
+def unet_train_path(result: dict) -> None:
+    """The canonical Unetv2 recipe through the CLI's entry point (eager
+    wCEL: no hand-written kernel runs), resumed; then one epoch of a
+    ``Trainer`` built the same way with ``build_fused_ce`` as its loss,
+    which must launch K3 once per train step and per validation batch and
+    K4 once per train step."""
+    import yaml
+
+    from cvcs_tpu_torch.cli import train as train_cli
+    from cvcs_tpu_torch.ops import fused_ce
+    from cvcs_tpu_torch.train.loop import Trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # configs/train_unetv2.yaml, on the synthetic set and 2 epochs
+        cfg = dict(
+            train=synthetic_dataset(tmp / "train", 2, seed=20),
+            validation=synthetic_dataset(tmp / "val", 1, seed=30),
+            checkpoint_directory=str(tmp / "ckpt"), device="gpu",
+            net="Unetv2", epochs=TRAIN_EPOCHS, chunk_size=2,
+            validation_chunk_size=1, patch_size=224, batch_size=B_TRAIN,
+            loss="wCEL", opt="SGD2", ignore_background=True,
+            random_shift=True, augmentation=True, freq=1,
+            precision_evaluation_freq=1, num_classes=15, verbose=True,
+            precision="bf16", seed=0, metrics_log=str(tmp / "metrics.jsonl"))
+        path = tmp / "train.yaml"
+        path.write_text(yaml.safe_dump(cfg))
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = train_cli.main(["train", str(path)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = kernel_counts()
+        assert rc == 0, rc
+        steps = TRAIN_EPOCHS * STEPS_PER_EPOCH
+        metrics = [json.loads(x) for x in
+                   (tmp / "metrics.jsonl").read_text().splitlines()]
+        meta = json.loads((tmp / "ckpt" / f"checkpoint{TRAIN_EPOCHS}"
+                           / "meta.json").read_text())
+        losses = meta["training_loss_values"]
+        log(f"  cli.train Unetv2 bf16, {TRAIN_EPOCHS} epochs x "
+            f"{STEPS_PER_EPOCH} steps in {secs:.2f} s (model build, class "
+            f"weights, validation and evaluation included); epoch 2: "
+            f"{metrics[1]['patches_per_s']:.1f} patches/s over "
+            f"{metrics[1]['epoch_s']:.2f} s; losses {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}, all finite: "
+            f"{bool(np.isfinite(losses).all())}; validation losses "
+            f"{[round(v, 4) for v in meta['validation_loss_values'][::8]]}; "
+            f"hand-written kernel launches {counts} (none: eager wCEL, "
+            "reference augmentation)")
+        assert not any(counts.values())
+        assert len(losses) == steps and np.isfinite(losses).all()
+        assert np.isfinite(meta["validation_loss_values"]).all()
+        assert len(meta["conf_flat"]) == TRAIN_EPOCHS
+        result["unet_train"] = dict(
+            seconds=secs, patches_per_s_epoch2=metrics[1]["patches_per_s"],
+            epoch2_s=metrics[1]["epoch_s"], first_loss=losses[0],
+            last_loss=losses[-1])
+
+        cfg.update(load_checkpoint=str(tmp / "ckpt" / "checkpoint1"),
+                   metrics_log=str(tmp / "resume.jsonl"))
+        path.write_text(yaml.safe_dump(cfg))
+        assert train_cli.main(["train", str(path)]) == 0
+        again = json.loads((tmp / "ckpt" / f"checkpoint{TRAIN_EPOCHS}"
+                            / "meta.json").read_text())
+        hist = again["training_loss_values"]
+        log(f"  resumed from checkpoint1: {len(hist)} training losses, the "
+            f"first {STEPS_PER_EPOCH} equal to the first run's: "
+            f"{hist[:STEPS_PER_EPOCH] == losses[:STEPS_PER_EPOCH]}; epoch 2 "
+            f"again {hist[STEPS_PER_EPOCH]:.4f} -> {hist[-1]:.4f}")
+        assert len(hist) == steps and np.isfinite(hist).all()
+        assert hist[:STEPS_PER_EPOCH] == losses[:STEPS_PER_EPOCH]
+
+        # one epoch with the fused loss: K3 / K4 on the path
+        base = train_cli.build_trainer(dict(
+            cfg, load_checkpoint=None, epochs=1,
+            checkpoint_directory=str(tmp / "fused"),
+            metrics_log=str(tmp / "fused.jsonl")))
+        weights = base.train_loader.class_weights(NC, True)
+        trainer = Trainer(base.spec, base.state,
+                          fused_ce.build_fused_ce(weights,
+                                                  ignore_background=True),
+                          base.train_loader, base.val_loader, base.config)
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = kernel_counts()
+        fused_losses = trainer.training_loss_values
+        want = (STEPS_PER_EPOCH + VAL_BATCHES, STEPS_PER_EPOCH)
+        log(f"  Trainer(loss_fn=build_fused_ce) Unetv2 bf16, 1 epoch in "
+            f"{secs:.2f} s: losses {fused_losses[0]:.4f} -> "
+            f"{fused_losses[-1]:.4f}, validation "
+            f"{[round(v, 4) for v in trainer.validation_loss_values]}; "
+            f"launches K3 {counts['K3']}, K4 {counts['K4']} (expected "
+            f"{want[0]} = {STEPS_PER_EPOCH} steps + {VAL_BATCHES} validation "
+            f"batches, and {want[1]})")
+        assert (counts["K3"], counts["K4"]) == want
+        assert counts["K1"] == counts["K2"] == counts["K5"] == 0
+        assert len(fused_losses) == STEPS_PER_EPOCH
+        assert np.isfinite(fused_losses).all()
+        assert np.isfinite(trainer.validation_loss_values).all()
+        result["unet_train"].update(
+            launches=dict(K3=counts["K3"], K4=counts["K4"]),
+            fused_epoch_s=secs, fused_losses=[fused_losses[0],
+                                              fused_losses[-1]])
+        result["unet_train"]["breakdown"] = train_breakdown(
+            trainer, "Unetv2 (fused loss)")
+        eager = Trainer(base.spec, base.state, base.loss_fn,
+                        base.train_loader, base.val_loader, base.config)
+        result["unet_train"]["breakdown_eager"] = train_breakdown(
+            eager, "Unetv2 (eager wCEL)")
+        del trainer, eager, base
     torch.cuda.empty_cache()
 
 
@@ -863,6 +1205,117 @@ def train_correctness(result: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def update_err(after: dict, want: dict, start: dict, names) -> tuple:
+    """Largest difference of two steps' parameter updates (after - start),
+    each relative to the reference update's largest element, floored at
+    1e-3 of the largest update of any parameter (the conv biases ahead of
+    a train-mode BN get gradients of rounding size only); and that largest
+    update."""
+    upd = {k: want[k] - start[k] for k in names}
+    top = max(float(u.abs().max()) for u in upd.values())
+    return max(float((after[k] - start[k] - u).abs().max())
+               / max(float(u.abs().max()), 1e-3 * top)
+               for k, u in upd.items()), top
+
+
+def unet_correctness(result: dict) -> None:
+    """One f32 Unetv2 train step through K3/K4 (``build_fused_ce``) vs one
+    through the eager wCEL from the same weights and batch: loss within
+    1e-5 relative, every updated parameter and BN running statistic within
+    1e-4 * max(1, |p|max) (only summation orders differ), and each
+    parameter's update within 5e-2 of the eager update (``update_err``).
+    One SGD2 step moves a parameter by about 1e-5, below the first
+    tolerance, so the second is what sees the gradient: a step whose loss
+    passes half the gradient must fail it. Then a bf16
+    recipe step with ``remat`` vs one without (cuDNN's deterministic
+    algorithms on both, so that only the rematerialisation differs): equal
+    losses, parameters and BN statistics (updated once), and each step's
+    peak memory."""
+    from cvcs_tpu_torch.data.reader import class_weights
+    from cvcs_tpu_torch.models import build_model
+    from cvcs_tpu_torch.ops import fused_ce, losses
+    from cvcs_tpu_torch.train.optim import build_optimizer
+    from cvcs_tpu_torch.train.state import TrainState
+    from cvcs_tpu_torch.train.step import train_step
+
+    g = torch.Generator().manual_seed(7)
+    image = torch.randint(0, 256, (B_TRAIN, 224, 224, 3), generator=g,
+                          dtype=torch.uint8).cuda()
+    blocks = torch.randint(0, NC, (B_TRAIN, 7, 7), generator=g)
+    blocks[0, 0, :3] = 255                       # void
+    mask = blocks.repeat_interleave(32, 1).repeat_interleave(32, 2)
+    counts = np.bincount(mask[mask < NC].numpy(), minlength=NC)
+    weights = class_weights(counts, True)
+    mask = mask.to(torch.int32).cuda()
+    fused = fused_ce.build_fused_ce(weights, ignore_background=True)
+    eager = losses.build_loss("wCEL", weights=weights, ignore_background=True,
+                              device="cuda")
+
+    def one_step(loss_fn, dtype, remat=False):
+        model, _ = build_model("Unetv2", NC, seed=0, dtype=dtype, remat=remat)
+        opt = build_optimizer("SGD2", model.parameters())
+        opt.set_epoch(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = float(train_step(TrainState(model, opt), loss_fn, image, mask))
+        peak = torch.cuda.max_memory_allocated()
+        return loss, model.state_dict(), peak
+
+    def worst(a, b):
+        return max(float((a[k] - v).abs().max()) / max(1.0, float(
+            v.abs().max())) for k, v in b.items() if v.is_floating_point())
+
+    def half_fused(logits, labels):        # same loss, half its gradient
+        loss = fused(logits, labels)
+        return 0.5 * loss + 0.5 * loss.detach()
+
+    start = build_model("Unetv2", NC, seed=0, dtype=torch.float32)[0]
+    names = [k for k, _ in start.named_parameters()]
+    start = start.state_dict()
+    before = kernel_counts()
+    f_loss, f_sd, _ = one_step(fused, torch.float32)
+    after = kernel_counts()
+    assert (after["K3"] - before["K3"], after["K4"] - before["K4"]) == (1, 1)
+    e_loss, e_sd, _ = one_step(eager, torch.float32)
+    h_loss, h_sd, _ = one_step(half_fused, torch.float32)
+    rel = abs(f_loss - e_loss) / abs(e_loss)
+    err = worst(f_sd, e_sd)
+    upd, upd_max = update_err(f_sd, e_sd, start, names)
+    upd_half, _ = update_err(h_sd, e_sd, start, names)
+    log(f"  f32 Unetv2 step, fused K3/K4 vs eager wCEL: loss {f_loss:.6f} vs "
+        f"{e_loss:.6f} (relative {rel:.2e}, tol 1e-5); updated parameters and"
+        f" BN statistics max err/scale {err:.2e} (tol 1e-4); largest "
+        f"parameter update {upd_max:.3e}; update error {upd:.2e} (tol "
+        f"{TOL_UPDATE:.0e}); with half the gradient {upd_half:.2e} (must "
+        f"fail), its params err/scale {worst(h_sd, e_sd):.2e}")
+    assert rel <= 1e-5 and err <= 1e-4 and upd <= TOL_UPDATE
+    assert h_loss == f_loss and upd_half > TOL_UPDATE
+    del f_sd, e_sd, h_sd, start
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        p_loss, p_sd, p_peak = one_step(eager, torch.bfloat16)
+        r_loss, r_sd, r_peak = one_step(eager, torch.bfloat16, remat=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    r_err = worst(r_sd, p_sd)
+    stat = "encode1.0.layer.1.running_mean"
+    log(f"  bf16 Unetv2 step, remat vs plain: loss {r_loss:.6f} vs "
+        f"{p_loss:.6f}; parameters and BN statistics max err/scale "
+        f"{r_err:.2e}; {stat}[:3] {r_sd[stat][:3].tolist()} vs "
+        f"{p_sd[stat][:3].tolist()}; peak memory remat "
+        f"{r_peak / 2**30:.3f} GiB, plain {p_peak / 2**30:.3f} GiB")
+    assert r_loss == p_loss and r_err <= 1e-6
+    result["unet_correctness"] = dict(
+        f32_fused_vs_eager_loss_rel=rel, f32_fused_vs_eager_param_err=err,
+        f32_fused_vs_eager_update_err=upd, largest_update=upd_max,
+        half_gradient_update_err=upd_half,
+        remat_param_err=r_err, remat_peak_bytes=r_peak,
+        plain_peak_bytes=p_peak)
+    del p_sd, r_sd
+    torch.cuda.empty_cache()
+
+
 def kernel_entry(meta, launches, err, times, library, per, **extra) -> dict:
     t = times["total"] if "total" in times else times
     return dict(
@@ -879,7 +1332,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    from cvcs_tpu_torch.ops import _build, augment, swin_attn
+    from cvcs_tpu_torch.ops import _build, augment, fused_ce, swin_attn
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 means f32
     torch.backends.cudnn.allow_tf32 = False
@@ -889,7 +1342,7 @@ def main() -> int:
         f"{torch.cuda.device_count()}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    sources = ("swin_attn", "swin_attn_bwd", "augment")
+    sources = ("swin_attn", "swin_attn_bwd", "augment", "fused_ce")
     secs = _build.build(list(sources))
     for name in sources:
         ptxas = [ln.strip() for ln in _build.build_log(name).splitlines()
@@ -901,23 +1354,30 @@ def main() -> int:
     k1_err = check_k1()
     k2_err, k2_scaled = check_k2()
     k5_err = check_k5()
+    ce_err = check_k3k4()
 
     log("[4] serving path")
     result: dict = {}
-    main_path(result)
+    scene = main_path(result)
+    unet_scene(result, scene)
+    del scene
 
     log("[5] training path")
     train_path(result)
+    unet_train_path(result)
 
     log("[6] training correctness")
     train_correctness(result)
+    unet_correctness(result)
 
     log("[7] times (CUDA events, mean of 10 after 2 warm-up)")
     k1_times = time_k1()
     k2_times = time_k2()
     k5_times = time_k5()
+    k3_times, k4_times = time_k3k4()
 
     tl = result["train"]["launches"]
+    ul = result["unet_train"]["launches"]
     line = {"kernels": [
         kernel_entry(swin_attn.KERNEL, result["launches"], k1_err, k1_times,
                      "composite: F.layer_norm + F.linear + "
@@ -933,7 +1393,19 @@ def main() -> int:
                      "composite: torch.flip / torch.rot90 per draw group, "
                      "then the contrast and normalisation ops",
                      f"one training chunk of {B_CHUNK} patches 224x224x3 "
-                     "(1 launch)")],
+                     "(1 launch)"),
+        kernel_entry(fused_ce.KERNEL, ul["K3"], ce_err["k3_err"], k3_times,
+                     "F.cross_entropy(NCHW logits, weight, ignore_index=0) "
+                     "forward",
+                     f"one Unetv2 train step at p 224, batch {B_TRAIN} (1 "
+                     "launch), and one per validation batch",
+                     device_ms=k3_times["device_ms"]),
+        kernel_entry(fused_ce.BWD_KERNEL, ul["K4"], ce_err["k4_err"],
+                     k4_times, "autograd backward of F.cross_entropy(NCHW "
+                     "logits, weight, ignore_index=0)",
+                     f"one Unetv2 train step at p 224, batch {B_TRAIN} (1 "
+                     "launch)", max_scaled_err=ce_err["k4_rel"],
+                     device_ms=k4_times["device_ms"])],
         "scene_tiles_per_s": result["scene_tiles_per_s"],
         "serve_rasters_per_s": result["serve_rasters_per_s"],
         "serve_launches": result["serve_launches"],
@@ -941,6 +1413,10 @@ def main() -> int:
         "f32_label_agreement": result["f32_agreement"],
         "train": result["train"],
         "train_correctness": result["correctness"],
+        "unet_scene_tiles_per_s": result["unet_scene_tiles_per_s"],
+        "unet_forward": result["unet_forward"],
+        "unet_train": result["unet_train"],
+        "unet_correctness": result["unet_correctness"],
         "seconds": time.perf_counter() - t_start}
     log(smi)
     log(json.dumps(line))

@@ -44,13 +44,27 @@ def model_dtypes(config: dict) -> dict:
 
 def build_net(config: dict, device=None, seed: int = 0):
     """Model + spec from config names, seeded-initialised on ``device``;
-    like the reference, builds with num_classes + 1 for background."""
+    like the reference, builds with num_classes + 1 for background.
+
+    ``remat: true`` (train configs) builds the model with block-level
+    rematerialisation; a net without a ``remat`` argument rejects it."""
     name = config["net"]
     num_classes = int(config.get("num_classes", 15)) + 1
-    model, spec = build_model(
-        name, num_classes, device=device, seed=seed,
-        in_channels=int(config.get("in_channels", 3)),
-        **model_dtypes(config))
+    kw = dict(device=device, seed=seed,
+              in_channels=int(config.get("in_channels", 3)),
+              **model_dtypes(config))
+    if config.get("remat"):
+        try:
+            model, spec = build_model(name, num_classes, remat=True, **kw)
+        except TypeError as e:
+            if "remat" not in str(e):
+                raise  # a genuine construction error, not lack of support
+            raise ValueError(
+                f"remat: true is not supported for net {name!r} "
+                "(block-level rematerialization is implemented for the "
+                "UNet family); use grad_accum") from None
+        return model, spec, num_classes
+    model, spec = build_model(name, num_classes, **kw)
     return model, spec, num_classes
 
 

@@ -28,8 +28,6 @@ from cvcs_tpu_torch.train.state import TrainState, param_count
 
 # train config keys of paths the port does not run yet -> the ROADMAP item
 UNPORTED_TRAIN_KEYS = {
-    "remat": "block rematerialisation is not yet ported (ROADMAP.md Queue 1 "
-             "item 1, with the U-Nets that have it)",
     "load_context": "context windows are not yet ported (ROADMAP.md Queue 1 "
                     "item 4)",
     "random_tps": "random_tps crops are not yet ported (ROADMAP.md Queue 1 "

@@ -1,6 +1,9 @@
-"""Layer helpers with flax numerics on NHWC tensors, and the UNet
-``DecodeBlock`` (port of ``cvcs_tpu/models/blocks.py:162-188``), with
-BatchNorm in eval and train mode (``blocks.py:35-102``).
+"""Layer helpers with flax numerics on NHWC tensors, and the convolutional
+blocks of ``cvcs_tpu/models/blocks.py``: ``ConvBNAct`` (:108-140), the
+UNet ``DecodeBlock`` arithmetic (:162-188), ``UpscaleBlock`` (:143-159),
+``center_crop`` (:231-242), with BatchNorm in eval and train mode
+(:35-102). The JAX ``ConvTranspose`` (:191-228) is ``nn.ConvTranspose2d``
+run by :func:`conv_transpose_nhwc` on the exporter's flipped kernel.
 
 Parameters live in ``nn.Conv2d`` / ``nn.LayerNorm`` / ``nn.BatchNorm2d``
 holders, so state-dict names are torch's; the arithmetic is written out
@@ -11,9 +14,14 @@ take f32 statistics and cast back.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from cvcs_tpu_torch.ops.resize import upsample_bilinear
 
 
 def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
@@ -79,34 +87,63 @@ def batch_norm_eval(x, bn: nn.BatchNorm2d) -> torch.Tensor:
                    bn.bias, bn.eps, x.dtype)
 
 
+
+
 BN_MOMENTUM = 0.9    # flax convention: running = 0.9 * running + 0.1 * batch
 
 
-def batch_norm_train(x, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """BatchNorm on batch statistics over the last (channel) axis, the
-    JAX package's ``BatchNorm`` in train mode: f32 statistics with flax's
-    fast variance max(E[x^2] - E[x]^2, 0), normalisation with that biased
-    variance (eps from ``bn``, 1e-5), and the running-stats EMA (momentum
-    0.1 in torch's terms) with the running variance updated from the
-    UNBIASED variance (factor n / (n - 1)), as torch does."""
+def batch_stats(x):
+    """f32 batch statistics over every axis but the last, with flax's fast
+    variance max(E[x^2] - E[x]^2, 0): (x in f32, mean, biased var)."""
     xf = x.float()
     axes = tuple(range(x.dim() - 1))
     mean = xf.mean(axes)
     var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
-    with torch.no_grad():
-        n = xf.numel() // xf.shape[-1]
-        correction = n / max(n - 1, 1)
-        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
-                              + (1 - BN_MOMENTUM) * mean)
-        bn.running_var.copy_(BN_MOMENTUM * bn.running_var
-                             + (1 - BN_MOMENTUM) * var * correction)
+    return xf, mean, var
+
+
+@torch.no_grad()
+def update_running_stats(bn: nn.BatchNorm2d, mean, var, n: int) -> None:
+    """The running-stats EMA (momentum 0.1 in torch's terms), the running
+    variance from the UNBIASED variance (factor n / (n - 1)), as torch
+    does."""
+    correction = n / max(n - 1, 1)
+    bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
+                          + (1 - BN_MOMENTUM) * mean)
+    bn.running_var.copy_(BN_MOMENTUM * bn.running_var
+                         + (1 - BN_MOMENTUM) * var * correction)
+
+
+def batch_norm_train(x, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """BatchNorm on batch statistics over the last (channel) axis, the
+    JAX package's ``BatchNorm`` in train mode: f32 statistics
+    (:func:`batch_stats`), normalisation with the biased variance (eps
+    from ``bn``, 1e-5), and the running statistics updated
+    (:func:`update_running_stats`)."""
+    xf, mean, var = batch_stats(x)
+    update_running_stats(bn, mean, var, xf.numel() // xf.shape[-1])
     return _affine(xf, mean, var, bn.weight, bn.bias, bn.eps, x.dtype)
 
 
+def max_pool_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """2x2 max pool, stride 2 (flax ``nn.max_pool``, VALID)."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+
+
+def decode(x, pairs, training: bool) -> torch.Tensor:
+    """The UNet ``DecodeBlock`` arithmetic: for each (conv, bn) pair,
+    conv3x3 -> ReLU -> BN (the reference's swapped ReLU/BN order), BN on
+    batch statistics (updating the running ones) when ``training``, on the
+    running statistics otherwise."""
+    norm = batch_norm_train if training else batch_norm_eval
+    for conv, bn in pairs:
+        x = norm(torch.relu(conv_nhwc(x, conv, padding=1)), bn)
+    return x
+
+
 class DecodeBlock(nn.Module):
-    """2 x [conv3x3 -> ReLU -> BN] (the reference's swapped ReLU/BN order),
-    eps 1e-5; BN on batch statistics (updating the running ones) under
-    ``train()``, on the running statistics under ``eval()``."""
+    """2 x [conv3x3 -> ReLU -> BN], eps 1e-5, under SwinUNet's names
+    (``conv1``, ``bn1``, ``conv2``, ``bn2``)."""
 
     def __init__(self, cin: int, features: int):
         super().__init__()
@@ -116,9 +153,97 @@ class DecodeBlock(nn.Module):
         self.bn2 = nn.BatchNorm2d(features)
 
     def decode(self, x: torch.Tensor) -> torch.Tensor:
-        norm = batch_norm_train if self.training else batch_norm_eval
-        for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2)):
-            x = norm(torch.relu(conv_nhwc(x, conv, padding=1)), bn)
-        return x
+        return decode(x, ((self.conv1, self.bn1), (self.conv2, self.bn2)),
+                      self.training)
 
     forward = decode
+
+
+class ConvBNAct(nn.Module):
+    """conv3x3 -> BN -> ReLU, the reference's
+    ``UnetEncodeLayer`` under its names (``layer.0`` conv, ``layer.1``
+    BN).
+
+    ``remat=True`` recomputes the block's internals (conv output, BN
+    normalisation) in the backward instead of keeping them
+    (``torch.utils.checkpoint``). The recomputation writes no buffer: the
+    checkpointed function returns the batch statistics and the running
+    ones are updated once, outside it, as flax's ``nn.remat`` does."""
+
+    def __init__(self, cin: int, features: int, remat: bool = False):
+        super().__init__()
+        self.layer = nn.ModuleList([nn.Conv2d(cin, features, 3, padding=1),
+                                    nn.BatchNorm2d(features)])
+        self.remat = remat
+
+    def _train_block(self, x):
+        conv, bn = self.layer
+        y = conv_nhwc(x, conv, padding=1)
+        yf, mean, var = batch_stats(y)
+        y = _affine(yf, mean, var, bn.weight, bn.bias, bn.eps, y.dtype)
+        return torch.relu(y), mean, var
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv, bn = self.layer
+        if not self.training:
+            y = torch.relu(batch_norm_eval(conv_nhwc(x, conv, padding=1), bn))
+        else:
+            if self.remat and torch.is_grad_enabled():
+                y, mean, var = checkpoint(self._train_block, x,
+                                          use_reentrant=False)
+            else:
+                y, mean, var = self._train_block(x)
+            update_running_stats(bn, mean.detach(), var.detach(),
+                                 y.numel() // y.shape[-1])
+        return y
+
+
+class UpscaleBlock(nn.Module):
+    """2x bilinear upsample -> conv3x3 halving channels, the reference's
+    ``UnetUpscaleLayer`` under its names (``layer.1`` conv; ``layer.0``
+    is the parameterless upsample)."""
+
+    def __init__(self, cin: int):
+        super().__init__()
+        self.layer = nn.ModuleList([
+            nn.Upsample(scale_factor=2, mode="bilinear"),
+            nn.Conv2d(cin, cin // 2, 3, padding=1)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_nhwc(upsample_bilinear(x, 2), self.layer[1], padding=1)
+
+
+def center_crop(x: torch.Tensor, size) -> torch.Tensor:
+    """Center-crop the spatial dims of an NHWC tensor to ``size``, an int
+    (square) or an ``(out_h, out_w)`` pair (torchvision's rule)."""
+    out_h, out_w = (size, size) if isinstance(size, int) else size
+    top = (x.shape[1] - out_h) // 2
+    left = (x.shape[2] - out_w) // 2
+    return x[:, top:top + out_h, left:left + out_w, :]
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Seeded random init with the JAX models' scheme: lecun-normal
+    kernels (std sqrt(1/fan_in)), zero biases, LN/BN at identity. Draws
+    come from a CPU ``torch.Generator`` so a seed gives the same weights
+    on every device."""
+    gen = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            w = m.weight
+            if isinstance(m, nn.Linear):
+                fan_in = w.shape[1]
+            elif isinstance(m, nn.ConvTranspose2d):
+                fan_in = w.shape[0] * w.shape[2] * w.shape[3]
+            else:
+                fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+            w.copy_(torch.randn(w.shape, generator=gen)
+                    * math.sqrt(1.0 / fan_in))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
+            m.reset_parameters()
+            if isinstance(m, nn.BatchNorm2d):
+                m.reset_running_stats()
+    return model

@@ -1,7 +1,7 @@
 """Model registry (port of ``cvcs_tpu/models/registry.py``): config names
--> builders, with the typed model protocol. Only the Swin family is
-ported; every other name of the JAX registry raises and names the ROADMAP
-item that will port it."""
+-> model constructors, with the typed model protocol. The Swin and UNet
+families are ported; every other name of the JAX registry raises and
+names the ROADMAP item that will port it."""
 
 from __future__ import annotations
 
@@ -11,7 +11,9 @@ from typing import Any, Callable
 import torch
 
 from cvcs_tpu_torch.core.device import resolve_device
-from cvcs_tpu_torch.models.swin import SwinUNet, init_weights
+from cvcs_tpu_torch.models.blocks import init_weights
+from cvcs_tpu_torch.models.swin import SwinUNet
+from cvcs_tpu_torch.models.unet import unet, unet_v2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,24 +22,36 @@ class ModelSpec:
     build: Callable[..., torch.nn.Module]
     requires_context: bool = False
     returns_logits: bool = True
+    # full-convolution divisibility: input H/W must be multiples of this
+    # for the forward to return an input-aligned label map
+    stride_product: int = 1
 
 
 MODEL_REGISTRY: dict[str, ModelSpec] = {
     "SwinUnet": ModelSpec(
         "SwinUnet",
-        lambda num_classes, **kw: SwinUNet(num_classes=num_classes, **kw)),
+        lambda num_classes, **kw: SwinUNet(num_classes=num_classes, **kw),
+        stride_product=32),
     "SwinUnetTiny": ModelSpec(
         "SwinUnetTiny",
         lambda num_classes, **kw: SwinUNet(
             num_classes=num_classes, dims=(32, 64, 128, 256),
-            depths=(1, 1, 2, 1), heads=(1, 2, 4, 8), **kw)),
+            depths=(1, 1, 2, 1), heads=(1, 2, 4, 8), **kw),
+        stride_product=32),
+    "Unet": ModelSpec(
+        "Unet", lambda num_classes, **kw: unet(num_classes, **kw),
+        stride_product=16),
+    "Unetv2": ModelSpec(
+        "Unetv2", lambda num_classes, **kw: unet_v2(num_classes, **kw),
+        stride_product=16),
+    "Unetv2S2D": ModelSpec(
+        "Unetv2S2D",
+        lambda num_classes, **kw: unet_v2(num_classes, stem="s2d", **kw),
+        stride_product=32),
 }
 
 # the JAX registry's other names -> the ROADMAP item that ports them
 NOT_YET_PORTED = {
-    "Unet": "Queue 1 item 1 (U-Nets)",
-    "Unetv2": "Queue 1 item 1 (U-Nets)",
-    "Unetv2S2D": "Queue 1 item 1 (U-Nets)",
     "Resnet101": "Queue 1 item 9 (DeepLab family)",
     "Resnet50": "Queue 1 item 9 (DeepLab family)",
     "MobileNet": "Queue 1 item 9 (DeepLab family)",

@@ -265,30 +265,3 @@ class SwinUNet(nn.Module):
         for dec, s in zip(self.decoder, (2, 1, 0)):
             y = dec(y, skips[s])
         return self.head(y).float()
-
-
-@torch.no_grad()
-def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
-    """Seeded random init with the JAX model's scheme: lecun-normal
-    kernels (std sqrt(1/fan_in)), zero biases, LN/BN at identity. Draws
-    come from a CPU ``torch.Generator`` so a seed gives the same weights
-    on every device."""
-    gen = torch.Generator().manual_seed(seed)
-    for m in model.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
-            w = m.weight
-            if isinstance(m, nn.Linear):
-                fan_in = w.shape[1]
-            elif isinstance(m, nn.ConvTranspose2d):
-                fan_in = w.shape[0] * w.shape[2] * w.shape[3]
-            else:
-                fan_in = w.shape[1] * w.shape[2] * w.shape[3]
-            w.copy_(torch.randn(w.shape, generator=gen)
-                    * math.sqrt(1.0 / fan_in))
-            if m.bias is not None:
-                m.bias.zero_()
-        elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
-            m.reset_parameters()
-            if isinstance(m, nn.BatchNorm2d):
-                m.reset_running_stats()
-    return model

@@ -1,10 +1,10 @@
-"""Carry JAX SwinUNet variables into the port.
+"""Carry JAX SwinUNet and UNet variables into the port.
 
-:func:`swin_state_dict` turns the JAX parameter tree plus ``batch_stats``
-(nested dicts of numpy arrays, flax module names) into the port's
-``state_dict`` under the torch twin's names — the same names and values
-that ``cvcs_tpu.utils.torch_export.export_swin`` writes, so either source
-loads with ``strict=True``:
+:func:`swin_state_dict` and :func:`unet_state_dict` turn the JAX parameter
+tree plus ``batch_stats`` (nested dicts of numpy arrays, flax module
+names) into the port's ``state_dict`` under the torch names — the same
+names and values that ``cvcs_tpu.utils.torch_export.export_swin`` and
+``export_unet`` write, so either source loads with ``strict=True``:
 
 * conv kernels HWIO -> OIHW;
 * Dense kernels transposed ((in, out) -> (out, in));
@@ -33,41 +33,50 @@ def _node(tree: dict, path: tuple):
     return tree
 
 
+class _Writer:
+    """flax variable paths -> torch state-dict keys."""
+
+    def __init__(self, variables: dict):
+        self.params = variables["params"]
+        self.stats = variables.get("batch_stats", {})
+        self.sd: dict[str, torch.Tensor] = {}
+
+    def conv(self, path, name):
+        leaf = _node(self.params, path)
+        self.sd[f"{name}.weight"] = _f32(
+            np.asarray(leaf["kernel"]).transpose(3, 2, 0, 1))
+        if "bias" in leaf:
+            self.sd[f"{name}.bias"] = _f32(leaf["bias"])
+
+    def convt(self, path, name):
+        leaf = _node(self.params, path)
+        k = np.asarray(leaf["kernel"]).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+        self.sd[f"{name}.weight"] = _f32(k)
+        self.sd[f"{name}.bias"] = _f32(leaf["bias"])
+
+    def dense(self, path, name):
+        leaf = _node(self.params, path)
+        self.sd[f"{name}.weight"] = _f32(np.asarray(leaf["kernel"]).T)
+        self.sd[f"{name}.bias"] = _f32(leaf["bias"])
+
+    def ln(self, path, name):
+        leaf = _node(self.params, path)
+        self.sd[f"{name}.weight"] = _f32(leaf["scale"])
+        self.sd[f"{name}.bias"] = _f32(leaf["bias"])
+
+    def bn(self, path, name):
+        self.ln(path, name)
+        st = _node(self.stats, path)
+        self.sd[f"{name}.running_mean"] = _f32(st["mean"])
+        self.sd[f"{name}.running_var"] = _f32(st["var"])
+        self.sd[f"{name}.num_batches_tracked"] = torch.tensor(
+            0, dtype=torch.int64)
+
+
 def swin_state_dict(variables: dict, depths=(2, 2, 6, 2)) -> dict:
     """JAX SwinUNet ``{"params", "batch_stats"}`` -> port state dict."""
-    params = variables["params"]
-    stats = variables.get("batch_stats", {})
-    sd: dict[str, torch.Tensor] = {}
-
-    def conv(path, name):
-        leaf = _node(params, path)
-        sd[f"{name}.weight"] = _f32(np.asarray(leaf["kernel"]).transpose(3, 2, 0, 1))
-        if "bias" in leaf:
-            sd[f"{name}.bias"] = _f32(leaf["bias"])
-
-    def convt(path, name):
-        leaf = _node(params, path)
-        k = np.asarray(leaf["kernel"]).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
-        sd[f"{name}.weight"] = _f32(k)
-        sd[f"{name}.bias"] = _f32(leaf["bias"])
-
-    def dense(path, name):
-        leaf = _node(params, path)
-        sd[f"{name}.weight"] = _f32(np.asarray(leaf["kernel"]).T)
-        sd[f"{name}.bias"] = _f32(leaf["bias"])
-
-    def ln(path, name):
-        leaf = _node(params, path)
-        sd[f"{name}.weight"] = _f32(leaf["scale"])
-        sd[f"{name}.bias"] = _f32(leaf["bias"])
-
-    def bn(path, name):
-        ln(path, name)
-        st = _node(stats, path)
-        sd[f"{name}.running_mean"] = _f32(st["mean"])
-        sd[f"{name}.running_var"] = _f32(st["var"])
-        sd[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
-
+    w = _Writer(variables)
+    conv, convt, dense, ln, bn = w.conv, w.convt, w.dense, w.ln, w.bn
     conv(("Conv_0",), "patch_embed.proj")
     ln(("LayerNorm_0",), "patch_embed.norm")
     blk_idx = 0
@@ -96,13 +105,51 @@ def swin_state_dict(variables: dict, depths=(2, 2, 6, 2)) -> dict:
     convt(("ConvTranspose_3",), "head.up1")
     convt(("ConvTranspose_4",), "head.up2")
     conv(("Conv_4",), "head.out")
-    return sd
+    return w.sd
+
+
+def unet_state_dict(variables: dict, upsample: str = "transpose") -> dict:
+    """JAX UNet ``{"params", "batch_stats"}`` -> port state dict under the
+    reference's names, the names and values ``export_unet`` writes:
+    ``upsample="transpose"`` for "Unetv2" (and "Unetv2S2D"),
+    ``"bilinear"`` for "Unet"."""
+    w = _Writer(variables)
+    enc = ("_Encoder_0",)
+    for level in range(5):
+        # encode1 holds its convs at 0, 1; encode2..5 at 1, 2 (pool at 0)
+        offs = (0, 1) if level == 0 else (1, 2)
+        for j, off in enumerate(offs):
+            cba = enc + (f"ConvBNAct_{2 * level + j}",)
+            w.conv(cba + ("Conv_0",), f"encode{level + 1}.{off}.layer.0")
+            w.bn(cba + ("BatchNorm_0",), f"encode{level + 1}.{off}.layer.1")
+    for j in range(4):
+        if upsample == "transpose":
+            w.convt((f"ConvTranspose_{j}",), f"upscale{j + 1}.0")
+        else:
+            w.conv((f"UpscaleBlock_{j}", "Conv_0"),
+                   f"upscale{j + 1}.0.layer.1")
+        dec = f"decode_forward{j + 1}.0.layer"
+        blk = (f"DecodeBlock_{j}",)
+        w.conv(blk + ("Conv_0",), f"{dec}.0")
+        w.bn(blk + ("BatchNorm_0",), f"{dec}.2")
+        w.conv(blk + ("Conv_1",), f"{dec}.3")
+        w.bn(blk + ("BatchNorm_1",), f"{dec}.5")
+    w.conv(("Conv_0",), "decode_forward4.1")
+    return w.sd
 
 
 def load_jax_variables(model, variables: dict):
-    """Load JAX SwinUNet variables into a port ``SwinUNet`` (strict)."""
-    model.load_state_dict(swin_state_dict(variables, model.depths),
-                          strict=True)
+    """Load JAX variables into a port ``SwinUNet`` or ``UNet`` (strict)."""
+    from cvcs_tpu_torch.models.swin import SwinUNet
+    from cvcs_tpu_torch.models.unet import UNet
+
+    if isinstance(model, SwinUNet):
+        sd = swin_state_dict(variables, model.depths)
+    elif isinstance(model, UNet):
+        sd = unet_state_dict(variables, model.upsample)
+    else:
+        raise TypeError(f"no JAX weight bridge for {type(model).__name__}")
+    model.load_state_dict(sd, strict=True)
     return model
 
 

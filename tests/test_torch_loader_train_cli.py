@@ -206,12 +206,14 @@ def test_train_cli_halts_on_nan_and_refuses_what_it_cannot_run(
     trainer.loss_fn = lambda logits, labels: logits.float().mean() * np.nan
     with pytest.raises(FloatingPointError, match="non-finite"):
         trainer.train()
-    for key, value in (("remat", True), ("load_context", True),
+    for key, value in (("load_context", True),
                        ("random_tps", [[448, 0.1]]),
                        ("mesh", {"data": 2})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_cli.build_trainer(_config(dataset, tmp_path,
                                             **{key: value}))
+    with pytest.raises(ValueError, match="remat: true is not supported"):
+        train_cli.build_trainer(_config(dataset, tmp_path, remat=True))
     orbax = tmp_path / "ck" / "checkpoint9" / "state"
     orbax.mkdir(parents=True)
     with pytest.raises(NotImplementedError, match="Orbax"):

@@ -132,4 +132,4 @@ def test_unported_paths_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="multi-device"):
         serve_cli.serve(dict(base, mesh={"data": 2}))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        serve_cli.serve(dict(base, net="Unetv2"))
+        serve_cli.serve(dict(base, net="Resnet50"))
