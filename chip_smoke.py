@@ -15,7 +15,8 @@ Phases (any failure raises and the script exits non-zero):
    (its backward) at the p-224 training stage shapes, K5 (fused
    augmentation) on a training chunk, K3 and K4 (fused weighted
    cross-entropy forward sums and backward) at the Unetv2 recipe step's
-   logits and at a ragged size, with K3's repeats bit-equal;
+   logits and at a ragged size; K1's, K2's (bf16 and f32) and K3's
+   repeats on the same inputs bit-equal;
 4. the serving path: full-width SwinUnet (random weights from a fixed
    seed) segments one full-size 6800 x 7200 GID15-like scene
    (``predict_scene``, p 224, border correction 256, 128 windows per
@@ -23,7 +24,11 @@ Phases (any failure raises and the script exits non-zero):
    the launch counters must show every kernel ran; the same scene under
    the f32 policy through the kernel and through the plain attention
    must give the same labels on >= 99.9% of pixels; one forward of 128
-   windows is timed and traced (torch.profiler) for where its time goes.
+   windows is timed and traced (torch.profiler) for where its time goes;
+   one bf16 forward of 128 windows through the kernels and one through
+   the plain attention, each against the f32 plain forward: the kernels'
+   mean and max logit errors within 1.5x the plain bf16 forward's (the
+   f32 checks cannot see a wrong bf16 mma fragment; this one can).
    Then full-width Unetv2, the serve recipe's model, segments the same
    scene (the recipe's two-by-four mesh cut to one card);
 5. the training path: ``python -m cvcs_tpu_torch.cli.train``'s ``main``
@@ -47,7 +52,9 @@ Phases (any failure raises and the script exits non-zero):
    without, BN statistics updated once, and both peak memories print;
 7. times (CUDA events, after warm-up; K3 and K4 also their traced device
    time) of each kernel beside its bound, its plain version and a library
-   yardstick.
+   yardstick; K1 both at the serving shapes (per forward) and at the p-224
+   training shapes (per train step); for K1 and K2 also one op call
+   traced, split by CUDA kernel, with the GEMMs' achieved TFLOP/s.
 
 The last two lines are a JSON object of per-kernel numbers and the
 result line ``{"ok": true, "device": {...}}``.
@@ -57,6 +64,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -113,7 +121,7 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 
 # -- K1: Swin fused window attention -----------------------------------------
-def k1_inputs(case, dtype, seed=0):
+def k1_inputs(case, dtype, seed=0, batch=B):
     from cvcs_tpu_torch.models.swin import attn_bias
 
     _, hp, c, heads, win, h0, shift = case
@@ -122,7 +130,7 @@ def k1_inputs(case, dtype, seed=0):
     def rnd(*shape, std=1.0):
         return (torch.randn(shape, generator=g) * std).cuda()
 
-    x = rnd(B, hp, hp, c).to(dtype)
+    x = rnd(batch, hp, hp, c).to(dtype)
     args = [x, 1 + rnd(c, std=0.1), rnd(c, std=0.1),
             rnd(c, 3 * c, std=c ** -0.5), rnd(3 * c, std=0.02),
             rnd(c, c, std=c ** -0.5), rnd(c, std=0.02)]
@@ -130,12 +138,12 @@ def k1_inputs(case, dtype, seed=0):
     return args, bias, dict(win=win, heads=heads)
 
 
-def k1_bound(case, dtype, masked: bool) -> tuple[float, float]:
+def k1_bound(case, dtype, masked: bool, batch=B) -> tuple[float, float]:
     """(ms the bytes take at the memory rate, ms the operations take at
     the peak rate): each input read once, each output written once."""
     _, hp, c, _, win, _, _ = case
     s = torch.finfo(dtype).bits // 8
-    n = B * hp * hp
+    n = batch * hp * hp
     t = win * win
     nwin = (hp // win) ** 2
     nbytes = 2 * n * c * s + 4 * c * c * s + (nwin * t * t * 4 if masked else 0)
@@ -175,31 +183,58 @@ def check_k1() -> float:
             torch.cuda.synchronize()
             want = swin_attn.swin_window_attention_plain(*args, bias, **kw)
             torch.cuda.synchronize()
+            again = swin_attn.swin_window_attention(*args, bias, **kw)
+            same = torch.equal(got, again)
             scale = max(1.0, want.float().abs().max().item())
             err = (got.float() - want.float()).abs().max().item()
             mean = (got.float() - want.float()).abs().mean().item()
-            ok = err <= TOL[dtype] * scale and bool(torch.isfinite(got).all())
+            ok = (err <= TOL[dtype] * scale and same
+                  and bool(torch.isfinite(got).all()))
             log(f"  K1 {case[0]:>9} {str(dtype)[6:]:>8} B={B} Hp={case[1]} "
                 f"C={case[2]} heads={case[3]} win={case[4]} "
                 f"mask={'none' if bias is None else 'yes'}: max_abs_err="
-                f"{err:.3e} mean={mean:.2e} tol={TOL[dtype] * scale:.3e} "
-                f"{'ok' if ok else 'FAIL'}")
+                f"{err:.3e} mean={mean:.2e} tol={TOL[dtype] * scale:.3e}; "
+                f"repeat bit-equal: {same} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"K1 {case[0]} {dtype}: {err} > tol")
             if dtype == torch.bfloat16 and case[0].startswith("s"):
                 worst = max(worst, err)
-            del args, got, want
+            del args, got, want, again
     return worst
 
 
-def time_k1() -> dict:
-    """Per-case times (bf16, the main path) and per-forward totals."""
+def kernel_split(fn, n: int = 3) -> dict:
+    """Device time per op call of each CUDA kernel that ``fn`` issues,
+    traced over ``n`` calls, by kernel name (``swin_attn_fwd_gemm``, ...;
+    ``other`` for PyTorch's own, the parameter casts)."""
+    prof = device_profile(lambda: [fn() for _ in range(n)])
+    out: dict = {}
+    for name, (ms, _) in prof["by_name"].items():
+        m = re.search(r"(swin_\w+)", name)
+        key = m.group(1) if m else "other"
+        out[key] = out.get(key, 0.0) + ms / n
+    return out
+
+
+def split_line(split: dict, gemm_key: str, gemm_flops: float) -> str:
+    gemm_ms = split.get(gemm_key, 0.0)
+    tflops = gemm_flops / (gemm_ms * 1e-3) / 1e12 if gemm_ms else 0.0
+    return ("traced per call: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
+        + f" ms; GEMMs at {tflops:.1f} TFLOP/s")
+
+
+def time_k1(cases=K1_CASES, per=K1_PER_FORWARD, batch=B,
+            what="per forward") -> dict:
+    """Per-case times (bf16) and the totals of one forward (the serving
+    shapes, B windows) or of one train step (the p-224 training shapes,
+    ``time_k1(K2_CASES, K2_PER_STEP, B_TRAIN, "per train step")``)."""
     from cvcs_tpu_torch.ops import swin_attn
 
-    cases = {c[0]: c for c in K1_CASES}
+    cases = {c[0]: c for c in cases}
     rows = {}
-    for name, _ in K1_PER_FORWARD:
-        args, bias, kw = k1_inputs(cases[name], torch.bfloat16)
+    for name, _ in per:
+        args, bias, kw = k1_inputs(cases[name], torch.bfloat16, batch=batch)
         before = swin_attn.launches
         rows[name] = dict(
             ms=cuda_ms(lambda: swin_attn.swin_window_attention(
@@ -208,23 +243,31 @@ def time_k1() -> dict:
                 *args, bias, **kw)),
             library_ms=cuda_ms(lambda: k1_library(*args, bias, **kw)))
         rows[name]["bytes_ms"], rows[name]["ops_ms"] = k1_bound(
-            cases[name], torch.bfloat16, bias is not None)
+            cases[name], torch.bfloat16, bias is not None, batch)
+        rows[name]["split"] = kernel_split(
+            lambda: swin_attn.swin_window_attention(*args, bias, **kw))
+        _, hp, c = cases[name][:3]
+        gemm_flops = 8 * batch * hp * hp * c * c
         rows[name]["bound_ms"] = max(rows[name]["bytes_ms"],
                                      rows[name]["ops_ms"])
         swin_attn.launches = before     # timing launches are not the path's
         r = rows[name]
-        log(f"  K1 {name:>9} bf16: kernel {r['ms']:.3f} ms, plain "
+        log(f"  K1 {name:>9} bf16 B={batch}: kernel {r['ms']:.3f} ms, plain "
             f"{r['plain_ms']:.3f} ms, composite library "
             f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
             f"(bytes {r['bytes_ms']:.4f}, operations {r['ops_ms']:.4f}; "
             f"kernel at {r['bound_ms'] / r['ms'] * 100:.2f}% of bound)")
+        log("      " + split_line(r["split"], "swin_attn_fwd_gemm", gemm_flops))
         del args
-    total = {k: sum(rows[n][k] * cnt for n, cnt in K1_PER_FORWARD)
+    total = {k: sum(rows[n][k] * cnt for n, cnt in per)
              for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
                        "ops_ms")}
-    log(f"  K1 per forward (12 launches, bf16): kernel {total['ms']:.3f} ms,"
-        f" plain {total['plain_ms']:.3f} ms, composite library "
-        f"{total['library_ms']:.3f} ms, bound {total['bound_ms']:.4f} ms")
+    below = [n for n, _ in per if rows[n]["ms"] < rows[n]["library_ms"]]
+    log(f"  K1 {what} (12 op calls, bf16, B={batch}): kernel "
+        f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, composite "
+        f"library {total['library_ms']:.3f} ms, bound "
+        f"{total['bound_ms']:.4f} ms; below the library in "
+        f"{len(below)} of {len(per)} cases")
     return dict(total=total, per_case=rows)
 
 
@@ -293,6 +336,11 @@ def check_k2() -> tuple[float, float]:
             want = swin_attn.swin_window_attention_bwd_plain(*args, bias, cot,
                                                              **kw)
             torch.cuda.synchronize()
+            again = swin_attn._bwd_kernel_launch(*args, bias, cot, **kw)
+            for name, a, r in zip(GRADS, got, again):
+                if not torch.equal(a, r):
+                    raise AssertionError(f"K2 {case[0]} {dtype} {name}: "
+                                         "repeat not bit-equal")
             errs = []
             for name, a, w in zip(GRADS, got, want):
                 scale = max(1.0, w.float().abs().max().item())
@@ -308,10 +356,10 @@ def check_k2() -> tuple[float, float]:
                 f"Hp={case[1]} C={case[2]} heads={case[3]} win={case[4]} "
                 f"mask={'none' if bias is None else 'yes'}: 7 outputs, max "
                 f"abs err {e:.3e}, max err/scale {es:.2e} (tol "
-                f"{TOL_BWD[dtype]:.0e}) ok")
+                f"{TOL_BWD[dtype]:.0e}); repeat bit-equal ok")
             if dtype == torch.bfloat16 and case[0].startswith("s"):
                 worst, worst_scaled = max(worst, e), max(worst_scaled, es)
-            del args, got, want
+            del args, got, want, again
     return worst, worst_scaled
 
 
@@ -342,17 +390,22 @@ def time_k2() -> dict:
         r["bytes_ms"], r["ops_ms"] = k2_bound(cases[name], torch.bfloat16,
                                               bias is not None)
         r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
+        r["split"] = kernel_split(lambda: swin_attn._bwd_kernel_launch(
+            *args, bias, cot, **kw))
+        _, hp, c = cases[name][:3]
+        gemm_flops = 22 * B_TRAIN * hp * hp * c * c
         swin_attn.bwd_launches = before  # timing launches are not the path's
         log(f"  K2 {name:>9} bf16: kernel {r['ms']:.3f} ms, plain "
             f"{r['plain_ms']:.3f} ms, composite library backward "
             f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
             f"(bytes {r['bytes_ms']:.4f}, operations {r['ops_ms']:.4f}; "
             f"kernel at {r['bound_ms'] / r['ms'] * 100:.2f}% of bound)")
+        log("      " + split_line(r["split"], "swin_bwd_gemm", gemm_flops))
         del args
     total = {k: sum(rows[n][k] * cnt for n, cnt in K2_PER_STEP)
              for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
                        "ops_ms")}
-    log(f"  K2 per train step (12 launches, bf16, B={B_TRAIN}): kernel "
+    log(f"  K2 per train step (12 op calls, bf16, B={B_TRAIN}): kernel "
         f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, composite "
         f"library {total['library_ms']:.3f} ms, bound "
         f"{total['bound_ms']:.4f} ms")
@@ -612,29 +665,36 @@ def synthetic_scene(h, w, seed):
 CONV_NAMES = ("xmma", "cudnn", "conv", "gemm", "cutlass")
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, attempts: int = 3) -> dict:
     """Run ``fn`` under torch.profiler: device time by kernel name, the
     span from the first kernel's start to the last one's end, and the
-    device's idle share of that span."""
+    device's idle share of that span. A trace that holds no device event
+    at all (seen once in a run of many traces) is taken again, up to
+    ``attempts`` times in all, before this raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
-    spans, by_name = [], {}
-    for e in prof.events():
-        # user annotations (e.g. the optimizer step's range) span kernels
-        if (e.device_type != DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)):
-            continue
-        spans.append((e.time_range.start, e.time_range.end))
-        tot = by_name.setdefault(e.name, [0.0, 0])
-        tot[0] += e.time_range.elapsed_us() / 1e3
-        tot[1] += 1
-    if not spans:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        spans, by_name = [], {}
+        for e in prof.events():
+            # user annotations (e.g. the optimizer step's range) span kernels
+            if (e.device_type != DeviceType.CUDA
+                    or getattr(e, "is_user_annotation", False)):
+                continue
+            spans.append((e.time_range.start, e.time_range.end))
+            tot = by_name.setdefault(e.name, [0.0, 0])
+            tot[0] += e.time_range.elapsed_us() / 1e3
+            tot[1] += 1
+        if spans:
+            break
+        log(f"  torch.profiler recorded no device time (trace {attempt} of "
+            f"{attempts})")
+    else:
         raise RuntimeError("torch.profiler recorded no device time")
     spans.sort()
     busy_us, end = 0.0, spans[0][0]
@@ -670,7 +730,8 @@ def forward_breakdown(model, name: str = "SwinUnet") -> dict:
     k1_launches = sum(n for k, (_, n) in by_name.items()
                       if "swin_attn_fwd" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    k1 = (f"; K1 {prof['K1']:.3f} ms in {k1_launches} launches = "
+    k1 = (f"; K1 {prof['K1']:.3f} ms in {k1_launches} CUDA launches (4 "
+          f"per op call) = "
           f"{prof['K1'] / prof['kernel_ms'] * 100:.1f}% of kernel time"
           if k1_launches else "")
     log(f"  {name} forward bf16, {B} windows of 256x256: {ms:.3f} ms (CUDA "
@@ -783,6 +844,53 @@ def main_path(result: dict):
     assert agree >= 0.999
     result["f32_agreement"] = agree
     return scene
+
+
+def bf16_forward_check(result: dict) -> None:
+    """One bf16 SwinUnet forward of B bc-256 windows through the kernels and
+    one through the plain attention, each against the f32 forward through
+    the plain attention (same weights, same input): the kernels' mean and
+    max absolute logit errors must each be at most 1.5x the plain bf16
+    forward's. Both bf16 forwards round at the same casting points, so
+    they differ from the f32 one by the same kind of error; a wrong bf16
+    mma fragment would not (the f32 instance runs no fragment, so the f32
+    checks cannot see one)."""
+    from cvcs_tpu_torch.models import build_model
+    from cvcs_tpu_torch.models import swin as swin_mod
+    from cvcs_tpu_torch.ops import swin_attn
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randint(0, 256, (B, 256, 256, 3), generator=g,
+                      dtype=torch.uint8).cuda().float()
+    m16, _ = build_model("SwinUnet", 16, seed=0, dtype=torch.bfloat16)
+    m32, _ = build_model("SwinUnet", 16, seed=0, dtype=torch.float32)
+    before = swin_attn.launches
+    with torch.inference_mode():
+        kern = m16(x).float()
+        swin_mod.swin_window_attention = swin_attn.swin_window_attention_plain
+        try:
+            plain = m16(x).float()
+            ref = m32(x).float()
+        finally:
+            swin_mod.swin_window_attention = swin_attn.swin_window_attention
+    assert swin_attn.launches - before == 12
+    err = {}
+    for name, out in (("kernels", kern), ("plain", plain)):
+        d = (out - ref).abs()
+        err[name] = (float(d.mean()), float(d.max()))
+    ok = all(err["kernels"][i] <= 1.5 * err["plain"][i] for i in (0, 1))
+    log(f"  bf16 forward of {B} windows vs the f32 plain forward: kernels "
+        f"mean/max logit error {err['kernels'][0]:.4e} / "
+        f"{err['kernels'][1]:.4e}, plain bf16 attention "
+        f"{err['plain'][0]:.4e} / {err['plain'][1]:.4e} (|f32 logits| max "
+        f"{float(ref.abs().max()):.3e}; limit 1.5x the plain's) "
+        f"{'ok' if ok else 'FAIL'}")
+    assert all(torch.isfinite(t).all() for t in (kern, plain, ref))
+    assert ok, err
+    result["bf16_forward_error"] = dict(kernels=err["kernels"],
+                                        plain=err["plain"])
+    del m16, m32, kern, plain, ref
+    torch.cuda.empty_cache()
 
 
 def unet_scene(result: dict, scene) -> None:
@@ -1359,6 +1467,7 @@ def main() -> int:
     log("[4] serving path")
     result: dict = {}
     scene = main_path(result)
+    bf16_forward_check(result)
     unet_scene(result, scene)
     del scene
 
@@ -1372,6 +1481,7 @@ def main() -> int:
 
     log("[7] times (CUDA events, mean of 10 after 2 warm-up)")
     k1_times = time_k1()
+    k1_train = time_k1(K2_CASES, K2_PER_STEP, B_TRAIN, "per train step")
     k2_times = time_k2()
     k5_times = time_k5()
     k3_times, k4_times = time_k3k4()
@@ -1383,7 +1493,11 @@ def main() -> int:
                      "composite: F.layer_norm + F.linear + "
                      "F.scaled_dot_product_attention + F.linear",
                      "one SwinUnet forward at bc 256, 128 windows "
-                     "(12 launches)", launches_train=tl["K1"]),
+                     "(12 launches)", launches_train=tl["K1"],
+                     train_step=dict(per=f"one SwinUnet train step at p 224,"
+                                     f" batch {B_TRAIN} (12 launches)",
+                                     **k1_train["total"],
+                                     per_case=k1_train["per_case"])),
         kernel_entry(swin_attn.BWD_KERNEL, tl["K2"], k2_err, k2_times,
                      "composite: autograd backward of F.layer_norm + "
                      "F.linear + F.scaled_dot_product_attention + F.linear",
@@ -1411,6 +1525,7 @@ def main() -> int:
         "serve_launches": result["serve_launches"],
         "forward": result["forward"],
         "f32_label_agreement": result["f32_agreement"],
+        "bf16_forward_error": result["bf16_forward_error"],
         "train": result["train"],
         "train_correctness": result["correctness"],
         "unet_scene_tiles_per_s": result["unet_scene_tiles_per_s"],

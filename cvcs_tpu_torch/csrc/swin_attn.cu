@@ -1,8 +1,8 @@
 // Swin fused window attention, forward, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_fwd_pallas` / `_make_kernel` of
-// cvcs_tpu/ops/pallas_swin.py. One launch computes the pre-MLP half of a
-// Swin block over the rolled, window-padded map x (B, Hp, Wp, C):
+// cvcs_tpu/ops/pallas_swin.py (:176). One op call computes the pre-MLP
+// half of a Swin block over the rolled, window-padded map x (B, Hp, Wp, C):
 //
 //   LayerNorm (f32 stats, fast variance, eps 1e-6) -> x Wqkv + bqkv ->
 //   per window and head softmax(q k^T / sqrt(d) + bias) v -> x Wout + bout
@@ -11,377 +11,305 @@
 // projection, the softmax probabilities and each head's output are rounded
 // to the element type E; every product is accumulated in f32.
 //
-// Design: one thread block per (image, window). A window holds T <= 64
-// tokens, so the block loops over the heads with every operand of one head
-// in shared memory; each window's output is written by exactly one block
-// (no atomics, deterministic). The LN is recomputed while each K-chunk of
-// the QKV product is staged, so shared memory stays small whatever C is
-// (63 KB at head dim 32) and several blocks share an SM. The merged head
-// outputs go to a global scratch the caller allocates (B*nWin*T*C
-// elements), which stays in L2 between the head loop and the output
-// projection. All products run on the CUDA cores in f32; at the main
-// path's shapes the work is bound by operations, and tensor cores (mma /
-// wgmma) are the step that would move it.
+// What bounds it on the H100: 8*N*C^2 + 4*N*T*C operations for N tokens
+// against 2*N*C elements in and out, so the two projections (8*N*C^2) are
+// most of the work and at C >= 192 the op is bound by the tensor cores'
+// rate. Only the attention itself is per-window work: LN and both
+// projections are per token. So one op call launches, on the caller's
+// stream, four kernels (names carry swin_attn_fwd, so a profile tells them
+// from the backward's swin_bwd_ ones):
+//
+//   1. swin_attn_fwd_ln:   LN of every token, rounded, into the workspace
+//                          (one warp per token);
+//   2. swin_attn_fwd_gemm: qkv = ln Wqkv + bqkv, rounded: a tensor-core
+//                          GEMM over all N tokens (swin_tiles.cuh);
+//   3. swin_attn_fwd_core: one block of four warps per (image, window,
+//                          head), one warp per 16 query rows: S = q k^T on
+//                          mma.sync, scale, mask, softmax in f32 registers
+//                          (T <= 64 is one KV tile: no online rescaling), P
+//                          rounded, O = P v on mma.sync, O rounded into the
+//                          merged-heads workspace;
+//   4. swin_attn_fwd_gemm: out = o Wout + bout, rounded, into `out`.
+//
+// The grid covers output tiles of (N, 3C) and (window, head) pairs, so the
+// card fills at every stage whatever the number of windows (stage 4 of a
+// p-224 training step: 10 windows, yet 96 GEMM blocks and 240 attention
+// blocks). The LN output is written once rather than applied on the GEMM's
+// A-tile load: the GEMM then stages both operands by cp.async alone, and
+// the same GEMM serves every product of K1 and K2 (K2 keeps the LN output
+// for its weight gradient anyway); it costs one more pass over N*C
+// elements. Every product is on mma.sync with bf16 operands and f32
+// accumulation; the f32 instance runs the same kernels with an FMA inner
+// product (not TF32). Nothing is summed across blocks: repeats are
+// bit-equal.
+//
+// Measured on the H100 (PERF.md section 6): the GEMMs run at about
+// 100-180 TFLOP/s, so from stage 2 on they are most of an op call; at
+// stage 1 (C = 96) the call is bound by the round trips of the LN output,
+// qkv and the head outputs through device memory; at the training shapes
+// every kernel is a few microseconds and the launches set the pace.
+// wgmma with a TMA pipeline, and the LN folded into the QKV GEMM's A-tile
+// load, are the next steps.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "swin_tiles.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16 thread grid
-constexpr int kMaxT = 64;      // tokens per window (win <= 8)
-constexpr int kKC = 32;        // K chunk of the staged products
-constexpr int kMaxD = 64;      // head dim: 3d <= 16 * kMaxJ
-constexpr int kMaxJ = 12;      // QKV columns per thread
-constexpr int kOutN = 64;      // output-projection column chunk
-constexpr float kLnEps = 1e-6f;
+using namespace swin;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+constexpr int kCoreThreads = 128;  // four warps: 16 query rows each
 
 template <typename E>
-__device__ __forceinline__ E from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+__global__ void __launch_bounds__(kLnThreads)
+    swin_attn_fwd_ln(const E* __restrict__ x, const float* __restrict__ ln_s,
+                     const float* __restrict__ ln_b, E* __restrict__ ln, int P,
+                     int C, int vec) {
+  ln_rows_body<E>(x, ln_s, ln_b, nullptr, nullptr, ln, P, C, vec);
 }
 
-// the value a cast to E and back gives (round to nearest even)
-template <typename E>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f(from_f<E>(v));
+template <typename E, bool A_KM, bool B_KM, int EPI, int MI>
+__global__ void __launch_bounds__(kGemmThreads)
+    swin_attn_fwd_gemm(GemmArgs<E> p) {
+  gemm_body<E, A_KM, B_KM, EPI, MI>(p);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+template <typename E, bool A_KM, bool B_KM, int EPI>
+int gemm(const GemmArgs<E>& p, cudaStream_t st) {
+  return gemm_launch<E, A_KM, B_KM, EPI>(
+      swin_attn_fwd_gemm<E, A_KM, B_KM, EPI, 2>,
+      swin_attn_fwd_gemm<E, A_KM, B_KM, EPI, 4>, p, 1, st);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+template <typename E, int DP>
+__host__ __device__ constexpr int core_smem_bytes() {
+  // q, k, v of one head (64 x DP) and each warp's 16 x 64 probabilities
+  return (3 * kMaxT * (DP + chunk<E>()) + 4 * 16 * (kMaxT + chunk<E>())) *
+         (int)sizeof(E);
 }
 
-__host__ __device__ inline int smem_floats(int d) {
-  const int n3 = 3 * d;
-  const int nb = n3 > kOutN ? n3 : kOutN;
-  return 2 * kMaxT                  // LN mean, rstd
-         + kMaxT * (kKC + 1)        // A chunk
-         + kKC * nb                 // B chunk
-         + 3 * kMaxT * (d + 1)      // q, k, v of one head
-         + kMaxT * (kMaxT + 1);     // scores / probabilities
-}
+// Attention of one (image, window, head): q, k, v from the qkv workspace
+// (N, 3C) in pixel order, the rounded head output into o (N, C). DP: the
+// head dim padded to a multiple of 16 with zero columns.
+template <typename E, int DP>
+__global__ void __launch_bounds__(kCoreThreads)
+    swin_attn_fwd_core(const E* __restrict__ qkv,
+                       const float* __restrict__ bias, E* __restrict__ o,
+                       int Hp, int Wp, int C, int heads, int win, float scale,
+                       int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int CH = chunk<E>();
+  constexpr int LD = DP + CH;     // q, k, v row stride
+  constexpr int PLD = kMaxT + CH;  // probability row stride
+  E* Qs = reinterpret_cast<E*>(smem_raw);
+  E* Ks = Qs + kMaxT * LD;
+  E* Vs = Ks + kMaxT * LD;
+  E* Ps = Vs + kMaxT * LD;  // [4 warps][16][PLD]
 
-template <typename E>
-__global__ void __launch_bounds__(kThreads, 2) swin_attn_fwd_kernel(
-    const E* __restrict__ x, const float* __restrict__ ln_s,
-    const float* __restrict__ ln_b, const E* __restrict__ wqkv,
-    const E* __restrict__ bqkv, const E* __restrict__ wout,
-    const E* __restrict__ bout, const float* __restrict__ bias,
-    E* __restrict__ out, E* __restrict__ scratch, int Hp, int Wp, int C,
-    int heads, int win, float qk_scale) {
-  extern __shared__ float smem[];
   const int T = win * win;
   const int d = C / heads;
-  const int n3 = 3 * d;
-  const int nb = n3 > kOutN ? n3 : kOutN;
+  const int h = blockIdx.x % heads;
+  const int blk = blockIdx.x / heads;  // b * nwin + w, windows row-major
   const int nwx = Wp / win;
   const int nwin = (Hp / win) * nwx;
-  const int blk = blockIdx.x;  // b * nwin + w, windows row-major
   const int b = blk / nwin;
   const int w = blk - b * nwin;
   const int wy = w / nwx;
   const int wx = w - wy * nwx;
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-
-  float* mu = smem;
-  float* rs = mu + kMaxT;
-  float* As = rs + kMaxT;              // [kMaxT][kKC + 1]
-  float* Bs = As + kMaxT * (kKC + 1);  // [kKC][nb]
-  float* Qs = Bs + kKC * nb;           // [kMaxT][d + 1]
-  float* Ks = Qs + kMaxT * (d + 1);
-  float* Vs = Ks + kMaxT * (d + 1);
-  float* Ss = Vs + kMaxT * (d + 1);    // [kMaxT][kMaxT + 1]
-  const int as_ld = kKC + 1;
-  const int qk_ld = d + 1;
-  const int s_ld = kMaxT + 1;
+  const size_t C3 = 3 * (size_t)C;
 
   // token t of this window sits at pixel (wy*win + t/win, wx*win + t%win)
-  auto tok = [&](int t) -> size_t {
+  auto pix = [&](int t) -> size_t {
     const int r = t / win;
     const int c = t - r * win;
-    return ((size_t)(b * Hp + wy * win + r) * Wp + (wx * win + c)) * C;
+    return (size_t)(b * Hp + wy * win + r) * Wp + (wx * win + c);
   };
-  const E* scr = scratch + (size_t)blk * T * C;
 
-  // 1. LayerNorm statistics, one warp per token
-  for (int t = warp; t < T; t += kThreads / 32) {
-    const E* xt = x + tok(t);
-    float s = 0.f, s2 = 0.f;
-    for (int k = lane; k < C; k += 32) {
-      const float v = to_f(xt[k]);
-      s += v;
-      s2 += v * v;
-    }
-    s = warp_sum(s);
-    s2 = warp_sum(s2);
-    if (lane == 0) {
-      const float m = s / C;
-      mu[t] = m;
-      rs[t] = rsqrtf(fmaxf(s2 / C - m * m, 0.f) + kLnEps);
+  // q, k, v: rows >= T and columns >= d are zero
+  constexpr int CPR = DP / CH;
+  for (int i = tid; i < 3 * kMaxT * CPR; i += kCoreThreads) {
+    const int part = i / (kMaxT * CPR);
+    const int rem = i - part * kMaxT * CPR;
+    const int t = rem / CPR;
+    const int c = (rem - t * CPR) * CH;
+    E* dst = Qs + part * kMaxT * LD + t * LD + c;
+    const E* src = t < T ? qkv + pix(t) * C3 + part * C + h * d + c : qkv;
+    if (vec && t < T && c + CH <= d) {
+      cp_async16(dst, src);
+    } else {
+#pragma unroll
+      for (int j = 0; j < CH; ++j)
+        dst[j] = (t < T && c + j < d) ? src[j] : from_f<E>(0.f);
     }
   }
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
 
-  for (int h = 0; h < heads; ++h) {
-    // 2. q, k, v of head h: (T, C) LN tokens x (C, 3d) columns of Wqkv
-    float acc[4][kMaxJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kMaxJ; ++j) acc[i][j] = 0.f;
+  const int r0 = warp * 16;  // this warp's query rows r0 .. r0 + 15
+  if (r0 >= T) return;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
 
-    for (int k0 = 0; k0 < C; k0 += kKC) {
-      for (int i = tid; i < kMaxT * kKC; i += kThreads) {
-        const int t = i / kKC;
-        const int kk = i - t * kKC;
-        const int k = k0 + kk;
-        float v = 0.f;
-        if (t < T && k < C) {
-          const float xv = to_f(x[tok(t) + k]);
-          v = round_to<E>((xv - mu[t]) * rs[t] * ln_s[k] + ln_b[k]);
-        }
-        As[t * as_ld + kk] = v;
-      }
-      for (int i = tid; i < kKC * n3; i += kThreads) {
-        const int kk = i / n3;
-        const int n = i - kk * n3;
-        const int k = k0 + kk;
-        const int part = n / d;
-        const int col = part * C + h * d + (n - part * d);
-        Bs[kk * nb + n] = k < C ? to_f(wqkv[(size_t)k * 3 * C + col]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < kKC; ++kk) {
-        float a[4];
+  // S = q k^T: 16 rows x 64 keys, K = DP
+  float s[1][8][4];
+  zero(s);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[(ty + 16 * i) * as_ld + kk];
-#pragma unroll
-        for (int j = 0; j < kMaxJ; ++j) {
-          if (tx + 16 * j < n3) {
-            const float bv = Bs[kk * nb + tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], bv, acc[i][j]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int j = 0; j < kMaxJ; ++j) {
-      const int n = tx + 16 * j;
-      if (n < n3) {
-        const int part = n / d;
-        const int jj = n - part * d;
-        const float bv = to_f(bqkv[part * C + h * d + jj]);
-        float* dst = part == 0 ? Qs : (part == 1 ? Ks : Vs);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = ty + 16 * i;
-          if (row < T) dst[row * qk_ld + jj] = round_to<E>(acc[i][j] + bv);
-        }
-      }
-    }
-    __syncthreads();
+  for (int k0 = 0; k0 < DP; k0 += 16)
+    warp_mma_k16<E, false, false, 1, 8>(s, Qs, LD, Ks, LD, r0, 0, k0, lane);
 
-    // 3. scores: q k^T * scale + bias, f32
-    {
-      float sc[4][4];
+  // scale, mask, softmax over keys in f32; a row lives on the four lanes
+  // of one quad (16 keys each), the reductions are two shuffles
+  float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-      for (int c = 0; c < d; ++c) {
-        float a[4], kv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = ty + 16 * i;
-          a[i] = Qs[(row < T ? row : 0) * qk_ld + c];  // rows past T: dropped
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = tx + 16 * j;
-          kv[j] = Ks[(col < T ? col : 0) * qk_ld + c];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(a[i], kv[j], sc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = tx + 16 * j;
-          if (row < T && col < T) {
-            float s = sc[i][j] * qk_scale;
-            if (bias != nullptr) s += bias[((size_t)w * T + row) * T + col];
-            Ss[row * s_ld + col] = s;
-          }
-        }
-      }
+    for (int hh = 0; hh < 2; ++hh) {
+      const int c0 = 8 * j + 2 * t4;
+      const float2 b = mask_pair(bias, w, T, r0 + g + 8 * hh, c0);
+      const float v0 = c0 < T ? s[0][j][2 * hh] * scale + b.x : -INFINITY;
+      const float v1 =
+          c0 + 1 < T ? s[0][j][2 * hh + 1] * scale + b.y : -INFINITY;
+      s[0][j][2 * hh] = v0;
+      s[0][j][2 * hh + 1] = v1;
+      mx[hh] = fmaxf(mx[hh], fmaxf(v0, v1));
     }
-    __syncthreads();
-
-    // 4. softmax over keys, one warp per query row
-    for (int row = warp; row < T; row += kThreads / 32) {
-      float* sr = Ss + row * s_ld;
-      float m = -INFINITY;
-      for (int c = lane; c < T; c += 32) m = fmaxf(m, sr[c]);
-      m = warp_max(m);
-      float sum = 0.f;
-      for (int c = lane; c < T; c += 32) {
-        const float e = expf(sr[c] - m);
-        sr[c] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      for (int c = lane; c < T; c += 32) sr[c] = round_to<E>(sr[c] / sum);
-    }
-    __syncthreads();
-
-    // 5. head output P v -> merged-heads scratch, columns h*d .. h*d+d
-    {
-      float o[4][4];
+  float sum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
-      for (int c = 0; c < T; ++c) {
-        float p[4], v[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = ty + 16 * i;
-          p[i] = row < T ? Ss[row * s_ld + c] : 0.f;
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = tx + 16 * j;
-          v[j] = col < d ? Vs[c * qk_ld + col] : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) o[i][j] = fmaf(p[i], v[j], o[i][j]);
-      }
-      E* sw = scratch + (size_t)blk * T * C + h * d;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = tx + 16 * j;
-          if (row < T && col < d) sw[(size_t)row * C + col] = from_f<E>(o[i][j]);
-        }
-      }
-    }
-    __syncthreads();
+  for (int hh = 0; hh < 2; ++hh) {
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
   }
-
-  // 6. output projection: merged heads (T, C) x Wout (C, C) + bout
-  for (int n0 = 0; n0 < C; n0 += kOutN) {
-    float acc[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < C; k0 += kKC) {
-      for (int i = tid; i < kMaxT * kKC; i += kThreads) {
-        const int t = i / kKC;
-        const int kk = i - t * kKC;
-        const int k = k0 + kk;
-        As[t * as_ld + kk] =
-            (t < T && k < C) ? to_f(scr[(size_t)t * C + k]) : 0.f;
-      }
-      for (int i = tid; i < kKC * kOutN; i += kThreads) {
-        const int kk = i / kOutN;
-        const int n = i - kk * kOutN;
-        const int k = k0 + kk;
-        Bs[kk * nb + n] = (k < C && n0 + n < C)
-                              ? to_f(wout[(size_t)k * C + n0 + n])
-                              : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < kKC; ++kk) {
-        float a[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[(ty + 16 * i) * as_ld + kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[kk * nb + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
+    for (int e = 0; e < 4; ++e) {
+      const float ex = expf(s[0][j][e] - mx[e >> 1]);
+      s[0][j][e] = ex;
+      sum[e >> 1] += ex;
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col < C) {
-        const float bo = to_f(bout[col]);
+  for (int hh = 0; hh < 2; ++hh) {
+    sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+    sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+  }
+  E* Pw = Ps + warp * 16 * PLD;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = ty + 16 * i;
-          if (row < T) out[tok(row) + col] = from_f<E>(acc[i][j] + bo);
-        }
-      }
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      put2<E>(Pw + (g + 8 * hh) * PLD + 8 * j + 2 * t4,
+              s[0][j][2 * hh] / sum[hh], s[0][j][2 * hh + 1] / sum[hh], true);
+  __syncwarp();
+
+  // O = P v: 16 rows x DP, K = the keys (P and v are zero past T)
+  float acc[1][DP / 8][4];
+  zero(acc);
+#pragma unroll
+  for (int k0 = 0; k0 < T; k0 += 16)
+    warp_mma_k16<E, false, true, 1, DP / 8>(acc, Pw, PLD, Vs, LD, 0, 0, k0,
+                                            lane);
+  // O, rounded, through the warp's tile (P is consumed) so that each row
+  // of the head leaves in 16-byte stores
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      put2<E>(Pw + (g + 8 * hh) * PLD + 8 * j + 2 * t4, acc[0][j][2 * hh],
+              acc[0][j][2 * hh + 1], true);
+  __syncwarp();
+  for (int i = lane; i < 16 * CPR; i += 32) {
+    const int r = i / CPR;
+    const int c = (i - r * CPR) * CH;
+    if (r0 + r >= T || c >= d) continue;
+    E* dst = o + pix(r0 + r) * C + h * d + c;
+    const E* src = Pw + r * PLD + c;
+    if (vec && c + CH <= d) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < CH && c + e < d; ++e) dst[e] = src[e];
     }
   }
 }
 
-template <typename E>
-int launch(const void* x, const void* ln_s, const void* ln_b,
-           const void* wqkv, const void* bqkv, const void* wout,
-           const void* bout, const void* bias, void* out, void* scratch,
-           int B, int Hp, int Wp, int C, int heads, int win, float qk_scale,
-           cudaStream_t stream) {
-  const int d = C / heads;
-  const int smem = smem_floats(d) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      swin_attn_fwd_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+template <typename E, int DP>
+int launch_core(const E* qkv, const float* bias, E* o, int B, int Hp, int Wp,
+                int C, int heads, int win, float scale, cudaStream_t st) {
+  const int smem = core_smem_bytes<E, DP>();
+  cudaError_t err =
+      cudaFuncSetAttribute(swin_attn_fwd_core<E, DP>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)B * (Hp / win) * (Wp / win);
-  swin_attn_fwd_kernel<E><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const E*>(x), static_cast<const float*>(ln_s),
-      static_cast<const float*>(ln_b), static_cast<const E*>(wqkv),
-      static_cast<const E*>(bqkv), static_cast<const E*>(wout),
-      static_cast<const E*>(bout), static_cast<const float*>(bias),
-      static_cast<E*>(out), static_cast<E*>(scratch), Hp, Wp, C, heads, win,
-      qk_scale);
+  const int d = C / heads;
+  const int vec = vec_ok<E>(qkv, 3LL * C) && d % chunk<E>() == 0 &&
+                  C % chunk<E>() == 0;
+  const long long blocks = (long long)B * (Hp / win) * (Wp / win) * heads;
+  swin_attn_fwd_core<E, DP><<<(unsigned)blocks, kCoreThreads, smem, st>>>(
+      qkv, bias, o, Hp, Wp, C, heads, win, scale, vec);
   return (int)cudaGetLastError();
+}
+
+template <typename E>
+int launch(const void* x_, const void* ln_s, const void* ln_b,
+           const void* wqkv, const void* bqkv, const void* wout,
+           const void* bout, const void* bias_, void* out, void* scratch,
+           int B, int Hp, int Wp, int C, int heads, int win, float scale,
+           cudaStream_t st) {
+  const E* x = static_cast<const E*>(x_);
+  const float* bias = static_cast<const float*>(bias_);
+  const int P = B * Hp * Wp;
+  E* qkv = static_cast<E*>(scratch);      // P x 3C
+  E* ln = qkv + (size_t)P * 3 * C;        // P x C: the LN output, then o
+  E* o = ln;
+
+  const int vec = ln_vec_ok<E>(x, ln, C);
+  swin_attn_fwd_ln<E><<<ln_blocks<E>(P, C, vec), kLnThreads, 0, st>>>(
+      x, static_cast<const float*>(ln_s), static_cast<const float*>(ln_b), ln,
+      P, C, vec);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  GemmArgs<E> g{};
+  g.a = ln;
+  g.b = static_cast<const E*>(wqkv);
+  g.bias = static_cast<const E*>(bqkv);
+  g.out = qkv;
+  g.M = P;
+  g.N = 3 * C;
+  g.K = C;
+  g.lda = C;
+  g.ldb = 3 * C;
+  int rc = gemm<E, false, true, kBiasRound>(g, st);
+  if (rc) return rc;
+
+  const int d = C / heads;
+  if (d <= 16)
+    rc = launch_core<E, 16>(qkv, bias, o, B, Hp, Wp, C, heads, win, scale, st);
+  else if (d <= 32)
+    rc = launch_core<E, 32>(qkv, bias, o, B, Hp, Wp, C, heads, win, scale, st);
+  else if (d <= 48)
+    rc = launch_core<E, 48>(qkv, bias, o, B, Hp, Wp, C, heads, win, scale, st);
+  else
+    rc = launch_core<E, 64>(qkv, bias, o, B, Hp, Wp, C, heads, win, scale, st);
+  if (rc) return rc;
+
+  g.a = o;
+  g.b = static_cast<const E*>(wout);
+  g.bias = static_cast<const E*>(bout);
+  g.out = out;
+  g.N = C;
+  g.ldb = C;
+  return gemm<E, false, true, kBiasRound>(g, st);
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. dtype 0 = float32, 1 = bfloat16.
-// bias is (nWin, T, T) float32 or null. scratch holds B*nWin*T*C elements.
+// bias is (nWin, T, T) float32 or null. scratch holds 4*B*Hp*Wp*C elements
+// of the element type (qkv, then the LN output and the head outputs).
 // Returns a cudaError_t (0 = launched).
 extern "C" int cvcs_swin_attn_fwd(int dtype, const void* x, const void* ln_s,
                                   const void* ln_b, const void* wqkv,

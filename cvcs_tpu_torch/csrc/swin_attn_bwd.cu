@@ -1,11 +1,11 @@
 // Swin fused window attention, backward, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_bwd_pallas` / `_make_bwd_kernel` of
-// cvcs_tpu/ops/pallas_swin.py (per-window core `_attn_bwd_core`). Given the
-// forward's inputs (the rolled, window-padded map x (B, Hp, Wp, C), the LN,
-// QKV and output-projection parameters, the additive mask) and the output
-// cotangent g, one call returns dx in the element type E and the f32
-// gradients of ln scale, ln bias, wqkv, bqkv, wout and bout.
+// cvcs_tpu/ops/pallas_swin.py (:436; per-window core `_attn_bwd_core`).
+// Given the forward's inputs (the rolled, window-padded map x (B, Hp, Wp,
+// C), the LN, QKV and output-projection parameters, the additive mask) and
+// the output cotangent g, one call returns dx in the element type E and
+// the f32 gradients of ln scale, ln bias, wqkv, bqkv, wout and bout.
 //
 // Casting points are the TPU kernel's: the recomputed LN output and qkv,
 // da = g wout^T, the probabilities p (p32 stays f32 for ds), the recomputed
@@ -14,132 +14,319 @@
 //
 // Design. The TPU kernel carries its weight-gradient sums from one grid
 // step to the next (its grid runs in order). CUDA blocks run in parallel
-// and in no order, so here every sum over tokens is owned by one thread
-// that loops over its tokens in a fixed order, and split sums are added
-// by a second pass in a fixed order: no atomics, and repeats are
-// bit-equal. One call launches, on the caller's stream, these kernels
-// (their names carry the prefix swin_bwd_, so a profile can tell them
-// apart from the forward's):
+// and in no order, so here every sum over tokens is split into fixed
+// ranges, each owned by one block, and the ranges are added by a second
+// pass in a fixed order: no atomics, and repeats are bit-equal. One call
+// launches, on the caller's stream, these kernels (their names carry the
+// prefix swin_bwd_, so a profile can tell them apart from the forward's):
 //
 //   1. ln_fwd:    LN statistics (mu, rstd) and the rounded LN output, one
 //                 warp per token;
 //   2. gemm:      qkv = ln wqkv + bqkv (rounded);
 //   3. gemm:      da = g wout^T (rounded);
-//   4. attn_bwd:  one block per (image, window, head): scores, softmax,
-//                 o = p v, dp = do v^T, dv = p^T do, ds, dq = ds k,
-//                 dk = ds^T q, all in shared memory (T <= 64, d <= 64);
-//   5. gemm:      dln = dq2 wqkv^T (f32);
-//   6. ln_bwd:    dx from dln, one warp per token;
+//   4. attn:      one block of four warps per (image, window, head):
+//                 s = q k^T, softmax, o = p v, dp = do v^T, ds, dq = ds k,
+//                 dv = p^T do, dk = ds^T q, every product on mma.sync;
+//   5. gemm:      dln = dq2 wqkv^T (f32), split over its 3C-deep sum
+//                 into partials where its grid alone would not fill the
+//                 card;
+//   6. ln_bwd:    dx from dln (the partials added in order), one warp per
+//                 token;
 //   7. gemm:      dwqkv = ln^T dq2 and dwout = o^T g, split over tokens
 //                 into per-split f32 partials;
 //   8. colsum:    dbqkv = sum dq2, dbout = sum g, dlns = sum dln * xhat,
-//                 dlnb = sum dln, split the same way;
-//   9. reduce:    the partials of each gradient summed in split order.
+//                 dlnb = sum dln, split the same way (one launch);
+//   9. reduce:    the partials of each gradient summed in split order (one
+//                 launch for all six).
 //
 // Intermediates (LN output, qkv, da, o, dq2, dln) go through a workspace
 // the caller allocates (`cvcs_swin_attn_bwd_workspace` bytes). What bounds
-// it on the H100: about 22*N*C^2 + 12*N*T*C operations for N tokens, on
-// CUDA cores in f32 here, far below the tensor-core bound; the products
-// (steps 2, 3, 5 and 7) are the time, and `mma`/`wgmma` is the step that
-// would move them.
+// it on the H100: about 22*N*C^2 + 12*N*T*C operations for N tokens, most
+// of them the GEMMs of steps 2, 3, 5 and 7, so the tensor cores' rate.
+// Those GEMMs are the tensor-core template of swin_tiles.cuh (shared with
+// K1, instantiated here as swin_bwd_gemm): a 64 x 96 or 128 x 96 tile, a
+// cp.async ring, the NN, NT and TN operand layouts read by ldmatrix /
+// ldmatrix.trans from the staged tiles (no transposed copies); step 4
+// does all six of its products on mma.sync with bf16 operands and f32
+// accumulation. The f32 instance runs the same kernels with an FMA inner
+// product (not TF32). Steps 1, 6, 8 and 9 pass over N*C elements once or
+// twice each. Measured on the H100 (PERF.md section 6): at the p-224
+// training shapes a call's GEMMs take under 0.1 ms at 65-100 TFLOP/s, and
+// its ten launches, their gaps and the wrapper's host cost set its time,
+// not the tensor cores' rate.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
+#include "swin_tiles.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16 thread grid, 4 x 4 outputs each
-constexpr int kMaxT = 64;      // tokens per window (win <= 8)
-constexpr int kMaxD = 64;      // head dim
-constexpr int kTile = 64;      // GEMM output tile (64 x 64)
-constexpr int kKC = 32;        // GEMM K chunk staged in shared memory
-constexpr int kSums = 264;     // blocks a split sum aims for (2 per SM)
-constexpr float kLnEps = 1e-6f;
+using namespace swin;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename E>
-__device__ __forceinline__ E from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-template <typename E>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f(from_f<E>(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+constexpr int kThreads = 256;      // the per-token and column-sum kernels
+constexpr int kAttnThreads = 128;  // four warps: 16 rows each
+constexpr int kSums = 264;         // blocks a split sum aims for (2 per SM)
 
 // 1. LN statistics and rounded LN output, one warp per token.
 template <typename E>
-__global__ void swin_bwd_ln_fwd(const E* __restrict__ x,
-                                const float* __restrict__ ln_s,
-                                const float* __restrict__ ln_b,
-                                float* __restrict__ mu, float* __restrict__ rs,
-                                E* __restrict__ ln, int P, int C) {
-  const int p = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (p >= P) return;
-  const E* xt = x + (size_t)p * C;
-  float s = 0.f, s2 = 0.f;
-  for (int k = lane; k < C; k += 32) {
-    const float v = to_f(xt[k]);
-    s += v;
-    s2 += v * v;
+__global__ void __launch_bounds__(kLnThreads)
+    swin_bwd_ln_fwd(const E* __restrict__ x, const float* __restrict__ ln_s,
+                    const float* __restrict__ ln_b, float* __restrict__ mu,
+                    float* __restrict__ rs, E* __restrict__ ln, int P, int C,
+                    int vec) {
+  ln_rows_body<E>(x, ln_s, ln_b, mu, rs, ln, P, C, vec);
+}
+
+// Steps 2, 3, 5 and 7.
+template <typename E, bool A_KM, bool B_KM, int EPI, int MI>
+__global__ void __launch_bounds__(kGemmThreads) swin_bwd_gemm(GemmArgs<E> p) {
+  gemm_body<E, A_KM, B_KM, EPI, MI>(p);
+}
+
+template <typename E, bool A_KM, bool B_KM, int EPI>
+int gemm(const GemmArgs<E>& p, int splits, cudaStream_t st) {
+  return gemm_launch<E, A_KM, B_KM, EPI>(
+      swin_bwd_gemm<E, A_KM, B_KM, EPI, 2>,
+      swin_bwd_gemm<E, A_KM, B_KM, EPI, 4>, p, splits, st);
+}
+
+template <typename E, int DP>
+__host__ __device__ constexpr int attn_smem_bytes() {
+  // q, k, v, do (64 x DP) and p, ds (64 x 64)
+  return (4 * kMaxT * (DP + chunk<E>()) + 2 * kMaxT * (kMaxT + chunk<E>())) *
+         (int)sizeof(E);
+}
+
+// 4. Attention backward of one (image, window, head). Reads q, k, v from
+// the recomputed qkv and do from da; writes the rounded head output o to
+// `a_out` and the rounded dq, dk, dv to `dq2` (all in pixel order). Warp w
+// owns query rows 16w .. 16w + 15 for s, dp, o, ds and dq, and key rows
+// 16w .. 16w + 15 for dv and dk. DP: the head dim padded to a multiple of
+// 16 with zero columns; rows past T are zero.
+template <typename E, int DP>
+__global__ void __launch_bounds__(kAttnThreads)
+    swin_bwd_attn(const E* __restrict__ qkv, const E* __restrict__ da,
+                  const float* __restrict__ bias, E* __restrict__ a_out,
+                  E* __restrict__ dq2, int Hp, int Wp, int C, int heads,
+                  int win, float scale, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int CH = chunk<E>();
+  constexpr int LD = DP + CH;
+  constexpr int PLD = kMaxT + CH;
+  E* Qs = reinterpret_cast<E*>(smem_raw);
+  E* Ks = Qs + kMaxT * LD;
+  E* Vs = Ks + kMaxT * LD;
+  E* Ds = Vs + kMaxT * LD;    // do
+  E* Ps = Ds + kMaxT * LD;    // p, rounded
+  E* DSs = Ps + kMaxT * PLD;  // ds, rounded
+
+  const int T = win * win;
+  const int d = C / heads;
+  const int h = blockIdx.x % heads;
+  const int blk = blockIdx.x / heads;  // b * nwin + w, windows row-major
+  const int nwx = Wp / win;
+  const int nwin = (Hp / win) * nwx;
+  const int b = blk / nwin;
+  const int w = blk - b * nwin;
+  const int wy = w / nwx;
+  const int wx = w - wy * nwx;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const size_t C3 = 3 * (size_t)C;
+
+  // token t of this window sits at pixel (wy*win + t/win, wx*win + t%win)
+  auto pix = [&](int t) -> size_t {
+    const int r = t / win;
+    const int c = t - r * win;
+    return (size_t)(b * Hp + wy * win + r) * Wp + (wx * win + c);
+  };
+
+  // rows r0 + g, r0 + g + 8 of a 16 x DP accumulator, rounded, to
+  // dst[pix(row) * ld + off + h * d + col] for row < T and col < d
+  auto store_rows = [&](const float(&acc)[1][DP / 8][4], E* dst, size_t ld,
+                        size_t off, int r0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = r0 + g + 8 * hh;
+      if (row >= T) continue;
+      E* p = dst + pix(row) * ld + off + h * d;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + 2 * t4;
+        if (col < d)
+          put2<E>(p + col, acc[0][j][2 * hh], acc[0][j][2 * hh + 1],
+                  col + 1 < d);
+      }
+    }
+  };
+
+  constexpr int CPR = DP / CH;
+  for (int i = tid; i < 4 * kMaxT * CPR; i += kAttnThreads) {
+    const int part = i / (kMaxT * CPR);
+    const int rem = i - part * kMaxT * CPR;
+    const int t = rem / CPR;
+    const int c = (rem - t * CPR) * CH;
+    E* dst = Qs + part * kMaxT * LD + t * LD + c;
+    const E* src = qkv;
+    if (t < T)
+      src = part < 3 ? qkv + pix(t) * C3 + part * C + h * d + c
+                     : da + pix(t) * C + h * d + c;
+    if (vec && t < T && c + CH <= d) {
+      cp_async16(dst, src);
+    } else {
+#pragma unroll
+      for (int j = 0; j < CH; ++j)
+        dst[j] = (t < T && c + j < d) ? src[j] : from_f<E>(0.f);
+    }
   }
-  s = warp_sum(s);
-  s2 = warp_sum(s2);
-  const float m = s / C;
-  const float r = rsqrtf(fmaxf(s2 / C - m * m, 0.f) + kLnEps);
-  if (lane == 0) {
-    mu[p] = m;
-    rs[p] = r;
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int r0 = warp * 16;  // this warp's rows
+  const bool active = r0 < T;
+  const int TQ = (T + 15) & ~15;  // rows of p and ds that warps write
+  if (active) {
+    // s = q k^T * scale + bias -> p32 (f32, in registers)
+    float s[1][8][4];
+    zero(s);
+#pragma unroll
+    for (int k0 = 0; k0 < DP; k0 += 16)
+      warp_mma_k16<E, false, false, 1, 8>(s, Qs, LD, Ks, LD, r0, 0, k0, lane);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int c0 = 8 * j + 2 * t4;
+        const float2 b = mask_pair(bias, w, T, r0 + g + 8 * hh, c0);
+        const float v0 = c0 < T ? s[0][j][2 * hh] * scale + b.x : -INFINITY;
+        const float v1 =
+            c0 + 1 < T ? s[0][j][2 * hh + 1] * scale + b.y : -INFINITY;
+        s[0][j][2 * hh] = v0;
+        s[0][j][2 * hh + 1] = v1;
+        mx[hh] = fmaxf(mx[hh], fmaxf(v0, v1));
+      }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float ex = expf(s[0][j][e] - mx[e >> 1]);
+        s[0][j][e] = ex;
+        sum[e >> 1] += ex;
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+    }
+    // p32 in s; p (rounded, zero on rows past T) to shared memory
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const bool live = r0 + g + 8 * hh < T;
+        s[0][j][2 * hh] = live ? s[0][j][2 * hh] / sum[hh] : 0.f;
+        s[0][j][2 * hh + 1] = live ? s[0][j][2 * hh + 1] / sum[hh] : 0.f;
+        put2<E>(Ps + (r0 + g + 8 * hh) * PLD + 8 * j + 2 * t4,
+                s[0][j][2 * hh], s[0][j][2 * hh + 1], true);
+      }
+
+    // dp = do v^T
+    float dp[1][8][4];
+    zero(dp);
+#pragma unroll
+    for (int k0 = 0; k0 < DP; k0 += 16)
+      warp_mma_k16<E, false, false, 1, 8>(dp, Ds, LD, Vs, LD, r0, 0, k0,
+                                          lane);
+    // ds = p32 * (dp - sum(dp * p32)) * scale, rounded
+    float rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) rsum[e >> 1] += dp[0][j][e] * s[0][j][e];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      rsum[hh] += __shfl_xor_sync(0xffffffffu, rsum[hh], 1);
+      rsum[hh] += __shfl_xor_sync(0xffffffffu, rsum[hh], 2);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        put2<E>(DSs + (r0 + g + 8 * hh) * PLD + 8 * j + 2 * t4,
+                s[0][j][2 * hh] * (dp[0][j][2 * hh] - rsum[hh]) * scale,
+                s[0][j][2 * hh + 1] * (dp[0][j][2 * hh + 1] - rsum[hh]) *
+                    scale,
+                true);
+    __syncwarp();
+
+    // o = p v -> a_out; dq = ds k -> dq2[:, 0:C]
+    float acc[1][DP / 8][4];
+    zero(acc);
+#pragma unroll
+    for (int k0 = 0; k0 < TQ; k0 += 16)
+      warp_mma_k16<E, false, true, 1, DP / 8>(acc, Ps, PLD, Vs, LD, r0, 0, k0,
+                                              lane);
+    store_rows(acc, a_out, C, 0, r0);
+    zero(acc);
+#pragma unroll
+    for (int k0 = 0; k0 < TQ; k0 += 16)
+      warp_mma_k16<E, false, true, 1, DP / 8>(acc, DSs, PLD, Ks, LD, r0, 0,
+                                              k0, lane);
+    store_rows(acc, dq2, C3, 0, r0);
   }
-  E* out = ln + (size_t)p * C;
-  for (int k = lane; k < C; k += 32)
-    out[k] = from_f<E>((to_f(xt[k]) - m) * r * ln_s[k] + ln_b[k]);
+  __syncthreads();  // every row of p and ds is in shared memory
+  if (!active) return;
+
+  // dv = p^T do -> dq2[:, 2C:3C]; dk = ds^T q -> dq2[:, C:2C]
+  float acc[1][DP / 8][4];
+  zero(acc);
+#pragma unroll
+  for (int k0 = 0; k0 < TQ; k0 += 16)
+    warp_mma_k16<E, true, true, 1, DP / 8>(acc, Ps, PLD, Ds, LD, r0, 0, k0,
+                                           lane);
+  store_rows(acc, dq2, C3, 2 * C, r0);
+  zero(acc);
+#pragma unroll
+  for (int k0 = 0; k0 < TQ; k0 += 16)
+    warp_mma_k16<E, true, true, 1, DP / 8>(acc, DSs, PLD, Qs, LD, r0, 0, k0,
+                                           lane);
+  store_rows(acc, dq2, C3, C, r0);
 }
 
 // 6. dx = rs * (dxh - mean(dxh) - xhat * mean(dxh * xhat)), dxh = dln * lns,
-// one warp per token.
+// one warp per token. dln arrives as S partial sums over K ranges (S x P x
+// C, the first at dln itself): they are added in range order and the sum
+// is written back to dln for the LN parameter grads.
 template <typename E>
-__global__ void swin_bwd_ln_bwd(const E* __restrict__ x,
-                                const float* __restrict__ mu,
-                                const float* __restrict__ rs,
-                                const float* __restrict__ ln_s,
-                                const float* __restrict__ dln,
-                                E* __restrict__ dx, int P, int C) {
-  const int p = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+__global__ void __launch_bounds__(kThreads)
+    swin_bwd_ln_bwd(const E* __restrict__ x, const float* __restrict__ mu,
+                    const float* __restrict__ rs,
+                    const float* __restrict__ ln_s, float* __restrict__ dln,
+                    E* __restrict__ dx, int P, int C, int S) {
+  const int p = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
   const int lane = threadIdx.x & 31;
   if (p >= P) return;
   const E* xt = x + (size_t)p * C;
-  const float* gt = dln + (size_t)p * C;
+  float* gt = dln + (size_t)p * C;
+  const size_t stride = (size_t)P * C;
   const float m = mu[p];
   const float r = rs[p];
   float s1 = 0.f, s2 = 0.f;
   for (int k = lane; k < C; k += 32) {
+    float gk = gt[k];
+    for (int sp = 1; sp < S; ++sp) gk += gt[sp * stride + k];
+    if (S > 1) gt[k] = gk;
     const float xh = (to_f(xt[k]) - m) * r;
-    const float dxh = gt[k] * ln_s[k];
+    const float dxh = gk * ln_s[k];
     s1 += dxh;
     s2 += dxh * xh;
   }
@@ -153,348 +340,85 @@ __global__ void swin_bwd_ln_bwd(const E* __restrict__ x,
   }
 }
 
-// GEMM on the CUDA cores: out[m, n] = sum_k A(m, k) B(k, n) over the K
-// range of split blockIdx.z, f32 accumulation in k order.
-//   A(m, k) = A[k * lda + m] if A_M_CONTIG else A[m * lda + k]
-//   B(k, n) = B[k * ldb + n] if B_N_CONTIG else B[n * ldb + k]
-// EPI 0: f32 to out + blockIdx.z * M * N; 1: rounded to E; 2: rounded to E
-// after adding bias[n].
-template <typename E, bool A_M_CONTIG, bool B_N_CONTIG, int EPI>
-__global__ void __launch_bounds__(kThreads) swin_bwd_gemm(
-    const E* __restrict__ A, const E* __restrict__ Bm,
-    const E* __restrict__ bias, void* __restrict__ out, int M, int N, int K,
-    int lda, int ldb, int k_per_split) {
-  __shared__ float As[kKC][kTile + 1];
-  __shared__ float Bs[kKC][kTile + 1];
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int m0 = blockIdx.y * kTile;
-  const int n0 = blockIdx.x * kTile;
-  const int kb = blockIdx.z * k_per_split;
-  const int ke = min(K, kb + k_per_split);
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = kb; k0 < ke; k0 += kKC) {
-    for (int i = tid; i < kKC * kTile; i += kThreads) {
-      int kk, mm;
-      if (A_M_CONTIG) {
-        kk = i / kTile;
-        mm = i - kk * kTile;
-      } else {
-        mm = i / kKC;
-        kk = i - mm * kKC;
-      }
-      const int m = m0 + mm, k = k0 + kk;
-      float v = 0.f;
-      if (m < M && k < ke)
-        v = to_f(A_M_CONTIG ? A[(size_t)k * lda + m] : A[(size_t)m * lda + k]);
-      As[kk][mm] = v;
-    }
-    for (int i = tid; i < kKC * kTile; i += kThreads) {
-      int kk, nn;
-      if (B_N_CONTIG) {
-        kk = i / kTile;
-        nn = i - kk * kTile;
-      } else {
-        nn = i / kKC;
-        kk = i - nn * kKC;
-      }
-      const int n = n0 + nn, k = k0 + kk;
-      float v = 0.f;
-      if (n < N && k < ke)
-        v = to_f(B_N_CONTIG ? Bm[(size_t)k * ldb + n]
-                            : Bm[(size_t)n * ldb + k]);
-      Bs[kk][nn] = v;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kKC; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      if (EPI == 0) {
-        static_cast<float*>(out)[(size_t)blockIdx.z * M * N +
-                                 (size_t)m * N + n] = acc[i][j];
-      } else if (EPI == 1) {
-        static_cast<E*>(out)[(size_t)m * N + n] = from_f<E>(acc[i][j]);
-      } else {
-        static_cast<E*>(out)[(size_t)m * N + n] =
-            from_f<E>(acc[i][j] + to_f(bias[n]));
-      }
-    }
-  }
-}
-
-// acc = A (M x K) B (K x N) from shared memory with strides, for the
-// block's 16 x 16 threads (rows ty + 16 i, columns tx + 16 j, M, N <= 64).
-// ROUND_A rounds each A element to E first (p from p32).
-template <bool ROUND_A, typename E>
-__device__ __forceinline__ void block_mm(const float* A, int sam, int sak,
-                                         const float* B, int sbk, int sbn,
-                                         int M, int N, int K,
-                                         float acc[4][4]) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k = 0; k < K; ++k) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = ty + 16 * i;
-      float v = row < M ? A[row * sam + k * sak] : 0.f;
-      a[i] = ROUND_A ? round_to<E>(v) : v;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = tx + 16 * j;
-      b[j] = col < N ? B[k * sbk + col * sbn] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-__host__ __device__ inline int attn_smem_floats(int d) {
-  return 4 * kMaxT * (d + 1) + 2 * kMaxT * (kMaxT + 1);
-}
-
-// 4. Attention backward of one (image, window, head). Reads q, k, v from the
-// recomputed qkv and do from da; writes the rounded head output o to
-// `a_out` and the rounded dq, dk, dv to `dq2` (all in pixel order).
+// 8. The column sums, one launch: blockIdx.z 0 sums dq2 (P x 3C) into the
+// dbqkv partials, 1 sums g (P x C) into the dbout partials, 2 sums dln * xhat
+// and dln into the LN parameter grads' partials; each over the rows of
+// split blockIdx.y. A block takes 32 columns: its eight warps sum every
+// eighth row of the split, and warp 0 adds the eight sums in warp order.
 template <typename E>
-__global__ void __launch_bounds__(kThreads) swin_bwd_attn(
-    const E* __restrict__ qkv, const E* __restrict__ da,
-    const float* __restrict__ bias, E* __restrict__ a_out,
-    E* __restrict__ dq2, int Hp, int Wp, int C, int heads, int win,
-    float scale) {
-  extern __shared__ float smem[];
-  const int T = win * win;
-  const int d = C / heads;
-  const int h = blockIdx.x % heads;
-  const int blk = blockIdx.x / heads;  // b * nwin + w, windows row-major
-  const int nwx = Wp / win;
-  const int nwin = (Hp / win) * nwx;
-  const int b = blk / nwin;
-  const int w = blk - b * nwin;
-  const int wy = w / nwx;
-  const int wx = w - wy * nwx;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int ld = d + 1;
-  const int lds = kMaxT + 1;
-  float* Qs = smem;
-  float* Ks = Qs + kMaxT * ld;
-  float* Vs = Ks + kMaxT * ld;
-  float* Ds = Vs + kMaxT * ld;   // do
-  float* Ss = Ds + kMaxT * ld;   // scores, then p32
-  float* Ps = Ss + kMaxT * lds;  // dp, then ds
-  const int C3 = 3 * C;
-
-  // token t of this window sits at pixel (wy*win + t/win, wx*win + t%win)
-  auto pix = [&](int t) -> size_t {
-    const int r = t / win;
-    const int c = t - r * win;
-    return (size_t)(b * Hp + wy * win + r) * Wp + (wx * win + c);
-  };
-
-  for (int i = tid; i < T * d; i += kThreads) {
-    const int t = i / d;
-    const int c = i - t * d;
-    const size_t p = pix(t);
-    const E* row = qkv + p * C3 + h * d + c;
-    Qs[t * ld + c] = to_f(row[0]);
-    Ks[t * ld + c] = to_f(row[C]);
-    Vs[t * ld + c] = to_f(row[2 * C]);
-    Ds[t * ld + c] = to_f(da[p * C + h * d + c]);
-  }
-  __syncthreads();
-
-  float acc[4][4];
-  // scores s = q k^T * scale + bias
-  block_mm<false, E>(Qs, ld, 1, Ks, 1, ld, T, T, d, acc);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = tx + 16 * j;
-      if (row < T && col < T) {
-        float s = acc[i][j] * scale;
-        if (bias != nullptr) s += bias[((size_t)w * T + row) * T + col];
-        Ss[row * lds + col] = s;
+__global__ void __launch_bounds__(kThreads)
+    swin_bwd_colsum(const E* __restrict__ dq2, const E* __restrict__ g,
+                    const float* __restrict__ dln, const E* __restrict__ x,
+                    const float* __restrict__ mu, const float* __restrict__ rs,
+                    float* __restrict__ p_bqkv, float* __restrict__ p_bout,
+                    float* __restrict__ p_lns, float* __restrict__ p_lnb, int P,
+                    int C, int rows_qkv, int s_qkv, int rows_c, int s_c) {
+  __shared__ float part[2][kThreads / 32][33];
+  const int tx = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 5;
+  const int task = blockIdx.z;
+  const int M = task == 0 ? 3 * C : C;
+  const int rows = task == 0 ? rows_qkv : rows_c;
+  if ((int)blockIdx.y >= (task == 0 ? s_qkv : s_c) ||
+      (int)blockIdx.x * 32 >= M)
+    return;  // the whole block
+  const int col = blockIdx.x * 32 + tx;
+  const int r0 = blockIdx.y * rows;
+  const int r1 = min(P, r0 + rows);
+  float sa = 0.f, sb = 0.f;
+  if (col < M) {
+    if (task < 2) {
+      const E* in = task == 0 ? dq2 : g;
+      for (int r = r0 + ty; r < r1; r += kThreads / 32)
+        sa += to_f(in[(size_t)r * M + col]);
+    } else {
+      for (int r = r0 + ty; r < r1; r += kThreads / 32) {
+        const size_t i = (size_t)r * C + col;
+        const float gr = dln[i];
+        sa += gr * ((to_f(x[i]) - mu[r]) * rs[r]);
+        sb += gr;
       }
     }
   }
+  part[0][ty][tx] = sa;
+  part[1][ty][tx] = sb;
   __syncthreads();
-
-  // p32 = softmax over keys, one warp per query row
-  for (int row = warp; row < T; row += kThreads / 32) {
-    float* sr = Ss + row * lds;
-    float m = -INFINITY;
-    for (int c = lane; c < T; c += 32) m = fmaxf(m, sr[c]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int c = lane; c < T; c += 32) {
-      const float e = expf(sr[c] - m);
-      sr[c] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int c = lane; c < T; c += 32) sr[c] = sr[c] / sum;
+  if (ty != 0 || col >= M) return;
+  sa = sb = 0.f;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    sa += part[0][w][tx];
+    sb += part[1][w][tx];
   }
-  __syncthreads();
-
-  // o = p v -> a_out (rounded); dp = do v^T -> Ps; dv = p^T do -> dq2
-  block_mm<true, E>(Ss, lds, 1, Vs, ld, 1, T, d, T, acc);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = tx + 16 * j;
-      if (row < T && col < d)
-        a_out[pix(row) * C + h * d + col] = from_f<E>(acc[i][j]);
-    }
-  }
-  block_mm<false, E>(Ds, ld, 1, Vs, 1, ld, T, T, d, acc);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = tx + 16 * j;
-      if (row < T && col < T) Ps[row * lds + col] = acc[i][j];
-    }
-  }
-  block_mm<true, E>(Ss, 1, lds, Ds, ld, 1, T, d, T, acc);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = tx + 16 * j;
-      if (row < T && col < d)
-        dq2[pix(row) * C3 + 2 * C + h * d + col] = from_f<E>(acc[i][j]);
-    }
-  }
-  __syncthreads();
-
-  // ds = p32 * (dp - sum(dp * p32)) * scale, rounded; one warp per row
-  for (int row = warp; row < T; row += kThreads / 32) {
-    const float* pr = Ss + row * lds;
-    float* dr = Ps + row * lds;
-    float r = 0.f;
-    for (int c = lane; c < T; c += 32) r += dr[c] * pr[c];
-    r = warp_sum(r);
-    for (int c = lane; c < T; c += 32)
-      dr[c] = round_to<E>(pr[c] * (dr[c] - r) * scale);
-  }
-  __syncthreads();
-
-  // dq = ds k; dk = ds^T q
-  block_mm<false, E>(Ps, lds, 1, Ks, ld, 1, T, d, T, acc);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = tx + 16 * j;
-      if (row < T && col < d)
-        dq2[pix(row) * C3 + h * d + col] = from_f<E>(acc[i][j]);
-    }
-  }
-  block_mm<false, E>(Ps, 1, lds, Qs, ld, 1, T, d, T, acc);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = tx + 16 * j;
-      if (row < T && col < d)
-        dq2[pix(row) * C3 + C + h * d + col] = from_f<E>(acc[i][j]);
-    }
+  const size_t out = (size_t)blockIdx.y * M + col;
+  if (task == 0) {
+    p_bqkv[out] = sa;
+  } else if (task == 1) {
+    p_bout[out] = sa;
+  } else {
+    p_lns[out] = sa;
+    p_lnb[out] = sb;
   }
 }
 
-// 8. Column sums of a (P x M) matrix over the rows of split blockIdx.y.
-template <typename E>
-__global__ void swin_bwd_colsum(const E* __restrict__ in,
-                                float* __restrict__ part, int P, int M,
-                                int rows_per_split) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= M) return;
-  const int r0 = blockIdx.y * rows_per_split;
-  const int r1 = min(P, r0 + rows_per_split);
-  float s = 0.f;
-  for (int r = r0; r < r1; ++r) s += to_f(in[(size_t)r * M + col]);
-  part[(size_t)blockIdx.y * M + col] = s;
-}
+// 9. For each gradient j = blockIdx.y whose sum was split: out[i] = the sum
+// over splits s = 0, 1, ... of part[s * M + i].
+struct Reduce {
+  const float* part[6];
+  float* out[6];
+  int S[6], M[6];
+  int n;
+};
 
-// 8. The LN parameter grads: sum dln * xhat and sum dln per column.
-template <typename E>
-__global__ void swin_bwd_ln_grad(const float* __restrict__ dln,
-                                 const E* __restrict__ x,
-                                 const float* __restrict__ mu,
-                                 const float* __restrict__ rs,
-                                 float* __restrict__ part_s,
-                                 float* __restrict__ part_b, int P, int C,
-                                 int rows_per_split) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= C) return;
-  const int r0 = blockIdx.y * rows_per_split;
-  const int r1 = min(P, r0 + rows_per_split);
-  float ss = 0.f, sb = 0.f;
-  for (int r = r0; r < r1; ++r) {
-    const size_t i = (size_t)r * C + col;
-    const float g = dln[i];
-    ss += g * ((to_f(x[i]) - mu[r]) * rs[r]);
-    sb += g;
-  }
-  part_s[(size_t)blockIdx.y * C + col] = ss;
-  part_b[(size_t)blockIdx.y * C + col] = sb;
-}
-
-// 9. out[i] = sum over splits s = 0, 1, ... of part[s * M + i].
-__global__ void swin_bwd_reduce(const float* __restrict__ part,
-                                float* __restrict__ out, int S, int M) {
+__global__ void __launch_bounds__(kThreads) swin_bwd_reduce(Reduce r) {
+  const int j = blockIdx.y;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= M) return;
+  if (j >= r.n || i >= r.M[j]) return;
+  const float* part = r.part[j];
   float s = 0.f;
-  for (int k = 0; k < S; ++k) s += part[(size_t)k * M + i];
-  out[i] = s;
+  for (int k = 0; k < r.S[j]; ++k) s += part[(size_t)k * r.M[j] + i];
+  r.out[j][i] = s;
 }
-
-int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
 
 // How a sum over P tokens is split: S splits of `per` tokens each
 // (a multiple of `align`), enough to give about kSums blocks in all.
@@ -513,7 +437,7 @@ Split split_for(int P, int blocks_per_split, int align) {
 // The workspace, carved in order; every piece 256-byte aligned.
 struct Plan {
   int P, C;
-  Split sw_qkv, sw_out, sc_qkv, sc_out, sc_ln;
+  Split sw_qkv, sw_out, sc_qkv, sc_out, sd;
   size_t mu, rs, ln, qkv, da, a, dq2, dln, p_wqkv, p_wout, p_bqkv, p_bout,
       p_lns, p_lnb, total;
 };
@@ -529,11 +453,18 @@ Plan make_plan(int es, int B, int Hp, int Wp, int C) {
   pl.P = B * Hp * Wp;
   pl.C = C;
   const int P = pl.P;
-  pl.sw_qkv = split_for(P, cdiv(C, kTile) * cdiv(3 * C, kTile), kKC);
-  pl.sw_out = split_for(P, cdiv(C, kTile) * cdiv(C, kTile), kKC);
-  pl.sc_qkv = split_for(P, cdiv(3 * C, kThreads), 1);
-  pl.sc_out = split_for(P, cdiv(C, kThreads), 1);
-  pl.sc_ln = pl.sc_out;
+  pl.sw_qkv = split_for(P, cdiv(C, kBM) * cdiv(3 * C, kBN), kBK);
+  pl.sw_out = split_for(P, cdiv(C, kBM) * cdiv(C, kBN), kBK);
+  pl.sc_qkv = split_for(P, cdiv(3 * C, 32), 1);
+  pl.sc_out = split_for(P, cdiv(C, 32), 1);
+  // dln = dq2 wqkv^T sums over 3C: split it where its grid is small, at
+  // least four K slices a split
+  const int dln_blocks = cdiv(P, kBM) * cdiv(C, kBN);
+  int sd = dln_blocks >= kFill ? 1 : cdiv(kFill, dln_blocks);
+  const int max_sd = cdiv(3 * C, 4 * kBK);
+  sd = sd > max_sd ? max_sd : sd;
+  const int sd_per = cdiv(cdiv(3 * C, sd), kBK) * kBK;
+  pl.sd = Split{cdiv(3 * C, sd_per), sd_per};
   size_t off = 0;
   pl.mu = take(off, (size_t)P * 4);
   pl.rs = take(off, (size_t)P * 4);
@@ -542,13 +473,13 @@ Plan make_plan(int es, int B, int Hp, int Wp, int C) {
   pl.da = take(off, (size_t)P * C * es);
   pl.a = take(off, (size_t)P * C * es);
   pl.dq2 = take(off, (size_t)P * 3 * C * es);
-  pl.dln = take(off, (size_t)P * C * 4);
+  pl.dln = take(off, (size_t)pl.sd.S * P * C * 4);
   pl.p_wqkv = take(off, (size_t)pl.sw_qkv.S * C * 3 * C * 4);
   pl.p_wout = take(off, (size_t)pl.sw_out.S * C * C * 4);
   pl.p_bqkv = take(off, (size_t)pl.sc_qkv.S * 3 * C * 4);
   pl.p_bout = take(off, (size_t)pl.sc_out.S * C * 4);
-  pl.p_lns = take(off, (size_t)pl.sc_ln.S * C * 4);
-  pl.p_lnb = take(off, (size_t)pl.sc_ln.S * C * 4);
+  pl.p_lns = take(off, (size_t)pl.sc_out.S * C * 4);
+  pl.p_lnb = take(off, (size_t)pl.sc_out.S * C * 4);
   pl.total = off;
   return pl;
 }
@@ -559,10 +490,22 @@ Plan make_plan(int es, int B, int Hp, int Wp, int C) {
     if (e_ != cudaSuccess) return (int)e_;      \
   } while (0)
 
-// Sum S partials of M floats into out (S == 1: the partial is out itself).
-int finish(const float* part, float* out, int S, int M, cudaStream_t st) {
-  if (S == 1) return 0;
-  swin_bwd_reduce<<<cdiv(M, kThreads), kThreads, 0, st>>>(part, out, S, M);
+
+template <typename E, int DP>
+int launch_attn(const E* qkv, const E* da, const float* bias, E* a, E* dq2,
+                int B, int Hp, int Wp, int C, int heads, int win, float scale,
+                cudaStream_t st) {
+  const int smem = attn_smem_bytes<E, DP>();
+  cudaError_t err =
+      cudaFuncSetAttribute(swin_bwd_attn<E, DP>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int d = C / heads;
+  const int vec = vec_ok<E>(qkv, 3LL * C) && vec_ok<E>(da, C) &&
+                  d % chunk<E>() == 0;
+  const long long blocks = (long long)B * (Hp / win) * (Wp / win) * heads;
+  swin_bwd_attn<E, DP><<<(unsigned)blocks, kAttnThreads, smem, st>>>(
+      qkv, da, bias, a, dq2, Hp, Wp, C, heads, win, scale, vec);
   return (int)cudaGetLastError();
 }
 
@@ -608,66 +551,103 @@ int launch(const void* x_, const void* ln_s_, const void* ln_b_,
   float* p_wout = part(pl.p_wout, pl.sw_out.S, dwout);
   float* p_bqkv = part(pl.p_bqkv, pl.sc_qkv.S, dbqkv);
   float* p_bout = part(pl.p_bout, pl.sc_out.S, dbout);
-  float* p_lns = part(pl.p_lns, pl.sc_ln.S, dlns);
-  float* p_lnb = part(pl.p_lnb, pl.sc_ln.S, dlnb);
+  float* p_lns = part(pl.p_lns, pl.sc_out.S, dlns);
+  float* p_lnb = part(pl.p_lnb, pl.sc_out.S, dlnb);
 
   const int warps_blocks = cdiv((long long)P * 32, kThreads);
-  swin_bwd_ln_fwd<E><<<warps_blocks, kThreads, 0, st>>>(x, ln_s, ln_b, mu, rs,
-                                                      ln, P, C);
+  const int vec = ln_vec_ok<E>(x, ln, C);
+  swin_bwd_ln_fwd<E><<<ln_blocks<E>(P, C, vec), kLnThreads, 0, st>>>(
+      x, ln_s, ln_b, mu, rs, ln, P, C, vec);
   CHECK_LAUNCH();
-  swin_bwd_gemm<E, false, true, 2>
-      <<<dim3(cdiv(C3, kTile), cdiv(P, kTile), 1), kThreads, 0, st>>>(
-          ln, wqkv, bqkv, qkv, P, C3, C, C, C3, C);
-  CHECK_LAUNCH();
-  swin_bwd_gemm<E, false, false, 1>
-      <<<dim3(cdiv(C, kTile), cdiv(P, kTile), 1), kThreads, 0, st>>>(
-          g, wout, nullptr, da, P, C, C, C, C, C);
-  CHECK_LAUNCH();
-
-  const int d = C / heads;
-  const int smem = attn_smem_floats(d) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      swin_bwd_attn<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)B * (Hp / win) * (Wp / win) * heads;
-  swin_bwd_attn<E><<<(unsigned)blocks, kThreads, smem, st>>>(
-      qkv, da, bias, a, dq2, Hp, Wp, C, heads, win, scale);
-  CHECK_LAUNCH();
-
-  swin_bwd_gemm<E, false, false, 0>
-      <<<dim3(cdiv(C, kTile), cdiv(P, kTile), 1), kThreads, 0, st>>>(
-          dq2, wqkv, nullptr, dln, P, C, C3, C3, C3, C3);
-  CHECK_LAUNCH();
-  swin_bwd_ln_bwd<E><<<warps_blocks, kThreads, 0, st>>>(x, mu, rs, ln_s, dln,
-                                                      dx, P, C);
-  CHECK_LAUNCH();
-
-  swin_bwd_gemm<E, true, true, 0>
-      <<<dim3(cdiv(C3, kTile), cdiv(C, kTile), pl.sw_qkv.S), kThreads, 0,
-         st>>>(ln, dq2, nullptr, p_wqkv, C, C3, P, C, C3, pl.sw_qkv.per);
-  CHECK_LAUNCH();
-  swin_bwd_gemm<E, true, true, 0>
-      <<<dim3(cdiv(C, kTile), cdiv(C, kTile), pl.sw_out.S), kThreads, 0,
-         st>>>(a, g, nullptr, p_wout, C, C, P, C, C, pl.sw_out.per);
-  CHECK_LAUNCH();
-  swin_bwd_colsum<E><<<dim3(cdiv(C3, kThreads), pl.sc_qkv.S), kThreads, 0,
-                     st>>>(dq2, p_bqkv, P, C3, pl.sc_qkv.per);
-  CHECK_LAUNCH();
-  swin_bwd_colsum<E><<<dim3(cdiv(C, kThreads), pl.sc_out.S), kThreads, 0,
-                     st>>>(g, p_bout, P, C, pl.sc_out.per);
-  CHECK_LAUNCH();
-  swin_bwd_ln_grad<E><<<dim3(cdiv(C, kThreads), pl.sc_ln.S), kThreads, 0,
-                      st>>>(dln, x, mu, rs, p_lns, p_lnb, P, C,
-                            pl.sc_ln.per);
-  CHECK_LAUNCH();
-
+  auto args = [](const E* lhs, const E* rhs, const E* add, void* out, int M,
+                 int N, int K, int lda, int ldb) {
+    GemmArgs<E> p{};
+    p.a = lhs;
+    p.b = rhs;
+    p.bias = add;
+    p.out = out;
+    p.M = M;
+    p.N = N;
+    p.K = K;
+    p.lda = lda;
+    p.ldb = ldb;
+    return p;
+  };
   int rc;
-  if ((rc = finish(p_wqkv, dwqkv, pl.sw_qkv.S, C * C3, st))) return rc;
-  if ((rc = finish(p_wout, dwout, pl.sw_out.S, C * C, st))) return rc;
-  if ((rc = finish(p_bqkv, dbqkv, pl.sc_qkv.S, C3, st))) return rc;
-  if ((rc = finish(p_bout, dbout, pl.sc_out.S, C, st))) return rc;
-  if ((rc = finish(p_lns, dlns, pl.sc_ln.S, C, st))) return rc;
-  return finish(p_lnb, dlnb, pl.sc_ln.S, C, st);
+  // 2. qkv = ln wqkv + bqkv; 3. da = g wout^T
+  if ((rc = gemm<E, false, true, kBiasRound>(
+           args(ln, wqkv, bqkv, qkv, P, C3, C, C, C3), 1, st)))
+    return rc;
+  if ((rc = gemm<E, false, false, kRound>(
+           args(g, wout, nullptr, da, P, C, C, C, C), 1, st)))
+    return rc;
+
+  // 4. the attention backward, one block per (image, window, head)
+  const int d = C / heads;
+  if (d <= 16)
+    rc = launch_attn<E, 16>(qkv, da, bias, a, dq2, B, Hp, Wp, C, heads, win,
+                            scale, st);
+  else if (d <= 32)
+    rc = launch_attn<E, 32>(qkv, da, bias, a, dq2, B, Hp, Wp, C, heads, win,
+                            scale, st);
+  else if (d <= 48)
+    rc = launch_attn<E, 48>(qkv, da, bias, a, dq2, B, Hp, Wp, C, heads, win,
+                            scale, st);
+  else
+    rc = launch_attn<E, 64>(qkv, da, bias, a, dq2, B, Hp, Wp, C, heads, win,
+                            scale, st);
+  if (rc) return rc;
+
+  // 5. dln = dq2 wqkv^T, in pl.sd.S partials; 6. dx (adds them)
+  GemmArgs<E> pw = args(dq2, wqkv, nullptr, dln, P, C, C3, C3, C3);
+  pw.k_per_split = pl.sd.per;
+  if ((rc = gemm<E, false, false, kF32>(pw, pl.sd.S, st))) return rc;
+  swin_bwd_ln_bwd<E><<<warps_blocks, kThreads, 0, st>>>(x, mu, rs, ln_s, dln,
+                                                      dx, P, C, pl.sd.S);
+  CHECK_LAUNCH();
+
+  // 7. dwqkv = ln^T dq2, dwout = o^T g, split over tokens
+  pw = args(ln, dq2, nullptr, p_wqkv, C, C3, P, C, C3);
+  pw.k_per_split = pl.sw_qkv.per;
+  if ((rc = gemm<E, true, true, kF32>(pw, pl.sw_qkv.S, st))) return rc;
+  pw = args(a, g, nullptr, p_wout, C, C, P, C, C);
+  pw.k_per_split = pl.sw_out.per;
+  if ((rc = gemm<E, true, true, kF32>(pw, pl.sw_out.S, st))) return rc;
+
+  // 8. column sums
+  const int sc = pl.sc_qkv.S > pl.sc_out.S ? pl.sc_qkv.S : pl.sc_out.S;
+  swin_bwd_colsum<E><<<dim3(cdiv(C3, 32), sc, 3), kThreads, 0, st>>>(
+      dq2, g, dln, x, mu, rs, p_bqkv, p_bout, p_lns, p_lnb, P, C,
+      pl.sc_qkv.per, pl.sc_qkv.S, pl.sc_out.per, pl.sc_out.S);
+  CHECK_LAUNCH();
+
+  // 9. the split sums, added in split order (a sum of one split is its
+  // gradient already)
+  Reduce red{};
+  int widest = 0;
+  const struct {
+    const float* part;
+    float* out;
+    int S, M;
+  } sums[6] = {{p_wqkv, dwqkv, pl.sw_qkv.S, C * C3},
+               {p_wout, dwout, pl.sw_out.S, C * C},
+               {p_bqkv, dbqkv, pl.sc_qkv.S, C3},
+               {p_bout, dbout, pl.sc_out.S, C},
+               {p_lns, dlns, pl.sc_out.S, C},
+               {p_lnb, dlnb, pl.sc_out.S, C}};
+  for (const auto& u : sums) {
+    if (u.S == 1) continue;
+    red.part[red.n] = u.part;
+    red.out[red.n] = u.out;
+    red.S[red.n] = u.S;
+    red.M[red.n] = u.M;
+    widest = u.M > widest ? u.M : widest;
+    ++red.n;
+  }
+  if (red.n == 0) return 0;
+  swin_bwd_reduce<<<dim3(cdiv(widest, kThreads), red.n), kThreads, 0, st>>>(
+      red);
+  return (int)cudaGetLastError();
 }
 
 bool shape_ok(int B, int Hp, int Wp, int C, int heads, int win) {

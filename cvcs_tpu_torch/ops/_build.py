@@ -3,11 +3,12 @@ shared libraries with a plain C interface, and load them with ctypes.
 
 Each source compiles on its own with ``nvcc`` for ``sm_90a`` into
 ``build/kernels/lib<name>-<hash>.so`` at the repository root, at first
-use; the hash covers the source and the flags, so an edited source
-builds anew and a stale library is never loaded. :func:`build` starts one
-``nvcc`` per source, all at once, and waits for them together. ptxas's
-register and shared-memory report for each build is kept beside the
-library as ``.log``.
+use; the hash covers the source, every header under ``csrc/``
+(``*.cuh``, which a source may include) and the flags, so an edited
+source or header builds anew and a stale library is never loaded.
+:func:`build` starts one ``nvcc`` per source, all at once, and waits for
+them together. ptxas's register and shared-memory report for each build
+is kept beside the library as ``.log``.
 
 Nothing here runs when the package is imported: the CPU tests import
 every module on a machine that has no ``nvcc``.
@@ -40,8 +41,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(FLAGS).encode())
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

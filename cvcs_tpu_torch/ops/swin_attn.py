@@ -14,15 +14,19 @@ bound with ctypes (see :mod:`._build`).
 
 What bounds K1 on the H100: per call it does 8*N*C^2 + 4*N*T*C
 operations (N tokens, T = 64 per window) for 2*N*C elements read and
-written plus the weights. At the main path's stage 1 (C = 96) that is
-~256 operations per byte, at the card's bf16 balance point (~295); the
-deeper stages (C = 192..768) are bound by operations. The design keeps
-every intermediate (LN output, q/k/v, the (T, T) scores) on chip, one
-thread block per window, so device memory sees the input, the weights,
-the output and one scratch of merged head outputs that stays in L2. Its
-products run on the CUDA cores in f32, which caps it far below the
-tensor-core bound; moving the three products onto ``mma``/``wgmma`` is
-the next step. K2's design is described in its source.
+written plus the weights; the two projections are most of it, and from
+C = 192 on the op is bound by the tensor cores' rate. Only the attention
+is per-window work, so one op call issues four CUDA kernels: the LN of
+every token, a tensor-core GEMM for QKV over all N tokens, an attention
+core of one block per (window, head) with its two products on
+``mma.sync``, and the same GEMM for the output projection. The grid
+then fills the card whatever the number of windows. K2 keeps its
+nine-step split with the same GEMM and an ``mma.sync`` attention
+backward; its source lists its kernels. Both share
+``csrc/swin_tiles.cuh``. Every product takes bf16 operands into f32
+sums, which is the function the plain versions define (each operand is
+rounded at a casting point first); the f32 instances run the same
+kernels with an FMA inner product, not TF32.
 
 :class:`SwinWindowAttentionFn` is the autograd op: its forward is K1 and
 its backward K2 on a CUDA tensor; on a CPU tensor it runs the plain
@@ -31,8 +35,8 @@ versions :func:`swin_window_attention_plain` and
 torch with the kernels' casting points. It takes the float32 parameters
 and casts them inside, so their gradients come back in float32.
 :func:`swin_window_attention` goes through it and raises on any shape
-the kernels do not take. ``launches`` counts K1 launches,
-``bwd_launches`` K2 launches.
+the kernels do not take. ``launches`` counts K1 op calls that launched,
+``bwd_launches`` K2 op calls (one op call issues several CUDA kernels).
 """
 
 from __future__ import annotations
@@ -61,8 +65,8 @@ MAX_TOKENS = 64      # win <= 8
 MAX_HEAD_DIM = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0         # K1 launches since the caller last reset it
-bwd_launches = 0     # K2 launches since the caller last reset it
+launches = 0         # K1 op calls since the caller last reset it
+bwd_launches = 0     # K2 op calls since the caller last reset it
 
 
 def window_partition(x: torch.Tensor, win: int) -> torch.Tensor:
@@ -275,7 +279,8 @@ def _fwd_kernel(x, ln_s, ln_b, wqkv, bqkv, wout, bout, bias, *, win, heads):
             wout.to(dt).contiguous(), bout.to(dt).contiguous()]
     bias = None if bias is None else bias.to(f32).contiguous()
     out = torch.empty_like(x)
-    scratch = torch.empty(x.numel(), dtype=dt, device=x.device)
+    # qkv (N x 3C), then the LN output, reused for the head outputs (N x C)
+    scratch = torch.empty(4 * x.numel(), dtype=dt, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(_DTYPES[dt], x.data_ptr(), *[a.data_ptr() for a in args],

@@ -8,9 +8,14 @@ The file imports no JAX, so it also runs where JAX is not installed:
 
 Shapes are the main path's four stage shapes (p 224, border correction
 256) at a batch of 4 windows, unmasked and with the shifted-window mask,
-plus win 7 (T = 49) and a pad-masked map (56 -> 64). Tolerances: f32
-1e-5 * max(1, |plain|max) (both in f32, only the summation order
-differs); bf16 3e-2 * scale (a rounding point may flip one bf16 ulp).
+plus win 7 (T = 49) and a pad-masked map (56 -> 64); and the edges of
+the kernels' tiling (``EDGES``: a GEMM tile of 64 tokens x 96 columns,
+head dims padded to 16, 16-byte chunks): C below or off the tile (32, 48,
+and 36, whose rows are no whole number of chunks), a token count off the
+row tile (7 x 7 maps at batch 3), T = 49, a pad-masked 56 -> 64 map, and
+head dims 12, 16 and 64. Tolerances: f32 1e-5 * max(1, |plain|max) (both
+in f32, only the summation order differs); bf16 3e-2 * scale (a rounding
+point may flip one bf16 ulp).
 """
 
 import pytest
@@ -28,6 +33,15 @@ SHAPES = {
     "s3": (16, 384, 12, 8, 16, 0), "s3_shift": (16, 384, 12, 8, 16, 4),
     "s4": (8, 768, 24, 8, 8, 0), "t49": (7, 768, 24, 7, 7, 0),
     "pad56": (64, 96, 3, 8, 56, 0), "win4_shift": (16, 64, 2, 4, 14, 2),
+}
+# (Hp = Wp, C, heads, win, h0 = w0, shift, batch)
+EDGES = {
+    "tiny_c32": (56, 32, 1, 8, 56, 0, 2),       # SwinUnetTiny stage 1
+    "c48_h3": (16, 48, 3, 8, 14, 4, 2),         # d 16, C off the tile
+    "c36_h3": (8, 36, 3, 4, 6, 2, 2),           # d 12, rows not in chunks
+    "n147_t49": (7, 96, 3, 7, 7, 0, 3),         # N = 147, T = 49
+    "pad56": (64, 96, 3, 8, 56, 4, 1),          # pad-masked and shifted
+    "d64": (16, 128, 2, 8, 14, 4, 2),           # head dim 64
 }
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 
@@ -68,6 +82,25 @@ def test_kernel_matches_plain(card, name, dtype):
     scale = max(1.0, want.float().abs().max().item())
     err = (got.float() - want.float()).abs().max().item()
     assert err <= TOL[dtype] * scale, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(EDGES))
+def test_kernel_matches_plain_at_tile_edges(card, name, dtype):
+    *shape, b = EDGES[name]
+    args, bias, kw = _inputs(shape, dtype, card, b=b)
+    before = swin_attn.launches
+    got = swin_attn.swin_window_attention(*args, bias, **kw)
+    torch.cuda.synchronize()
+    assert swin_attn.launches == before + 1
+    want = swin_attn.swin_window_attention_plain(*args, bias, **kw)
+    assert got.dtype == dtype and got.shape == want.shape
+    scale = max(1.0, want.float().abs().max().item())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype] * scale, err
+    again = swin_attn.swin_window_attention(*args, bias, **kw)
+    assert torch.equal(got, again)
 
 
 def test_kernel_is_deterministic(card):

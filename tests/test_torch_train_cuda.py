@@ -10,7 +10,10 @@ The file imports no JAX, so it also runs where JAX is not installed:
 K2 shapes are the four SwinUnet stage shapes of a p-224 training step
 (stage 1 56 x 56 unpadded, stage 2 28 -> 32 and stage 3 14 -> 16 padded,
 stage 4 a single 7 x 7 window, T = 49), shifted and unshifted, at a batch
-of 2, plus a pad-masked 56 -> 64 map. Tolerances on all seven outputs:
+of 2, plus a pad-masked 56 -> 64 map; and the edges of the kernels'
+tiling (``EDGES``, as in ``tests/test_torch_swin_attn_cuda.py``): C 32,
+48 and 36, 7 x 7 maps at batch 3 (T = 49), a pad-masked shifted map,
+head dims 12, 16 and 64. Tolerances on all seven outputs:
 f32 1e-4 * max(1, |plain|max) (both in f32, only summation orders
 differ); bf16 5e-2 * scale, as the JAX package's own backward test
 (``tests/test_pallas_swin.py``): a rounding point may flip one bf16 ulp
@@ -32,6 +35,15 @@ SHAPES = {
     "s2": (32, 192, 6, 8, 28, 0), "s2_shift": (32, 192, 6, 8, 28, 4),
     "s3": (16, 384, 12, 8, 14, 0), "s3_shift": (16, 384, 12, 8, 14, 4),
     "s4": (7, 768, 24, 7, 7, 0), "pad56": (64, 96, 3, 8, 56, 0),
+}
+# (Hp = Wp, C, heads, win, h0 = w0, shift, batch)
+EDGES = {
+    "tiny_c32": (56, 32, 1, 8, 56, 0, 2),
+    "c48_h3": (16, 48, 3, 8, 14, 4, 2),
+    "c36_h3": (8, 36, 3, 4, 6, 2, 2),
+    "n147_t49": (7, 96, 3, 7, 7, 0, 3),
+    "pad56": (64, 96, 3, 8, 56, 4, 1),
+    "d64": (16, 128, 2, 8, 14, 4, 2),
 }
 TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 GRADS = ("dx", "dlns", "dlnb", "dwqkv", "dbqkv", "dwout", "dbout")
@@ -75,6 +87,26 @@ def test_bwd_kernel_matches_plain(card, name, dtype):
         scale = max(1.0, w.float().abs().max().item())
         err = (a.float() - w.float()).abs().max().item()
         assert err <= TOL[dtype] * scale, (n, err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(EDGES))
+def test_bwd_kernel_matches_plain_at_tile_edges(card, name, dtype):
+    *shape, b = EDGES[name]
+    args, bias, cot, kw = _inputs(shape, dtype, card, b=b)
+    before = swin_attn.bwd_launches
+    got = swin_attn._bwd_kernel_launch(*args, bias, cot, **kw)
+    torch.cuda.synchronize()
+    assert swin_attn.bwd_launches == before + 1
+    want = swin_attn.swin_window_attention_bwd_plain(*args, bias, cot, **kw)
+    again = swin_attn._bwd_kernel_launch(*args, bias, cot, **kw)
+    for n, a, w, r in zip(GRADS, got, want, again):
+        assert a.shape == w.shape and a.dtype == w.dtype, n
+        scale = max(1.0, w.float().abs().max().item())
+        err = (a.float() - w.float()).abs().max().item()
+        assert err <= TOL[dtype] * scale, (n, err, scale)
+        assert torch.equal(a, r), n
 
 
 def test_autograd_runs_both_kernels(card):
