@@ -7,15 +7,17 @@ Phases (any failure raises and the script exits non-zero):
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit;
-2. build: every CUDA source of the main paths, one ``nvcc`` each, in
-   parallel, into ``build/kernels/``;
+2. build: every CUDA source of the main paths, and the first designs of
+   K4 and K5 that phase 7 times beside the redesigns, one ``nvcc`` each,
+   in parallel, into ``build/kernels/``;
 3. kernels vs their plain PyTorch versions on the card, at the shapes the
    main paths give them (bf16 and f32 instances), within stated
    tolerances: K1 (window-attention forward) at the serving shapes, K2
    (its backward) at the p-224 training stage shapes, K5 (fused
-   augmentation) on a training chunk, K3 and K4 (fused weighted
+   augmentation) on a training chunk, every element equal, and its launch
+   plan equal to ``band_plan``'s; K3 and K4 (fused weighted
    cross-entropy forward sums and backward) at the Unetv2 recipe step's
-   logits and at a ragged size; K1's, K2's (bf16 and f32) and K3's
+   logits and at a ragged size; K1's, K2's (bf16 and f32), K3's and K4's
    repeats on the same inputs bit-equal;
 4. the serving path: full-width SwinUnet (random weights from a fixed
    seed) segments one full-size 6800 x 7200 GID15-like scene
@@ -54,7 +56,11 @@ Phases (any failure raises and the script exits non-zero):
    time) of each kernel beside its bound, its plain version and a library
    yardstick; K1 both at the serving shapes (per forward) and at the p-224
    training shapes (per train step); for K1 and K2 also one op call
-   traced, split by CUDA kernel, with the GEMMs' achieved TFLOP/s.
+   traced, split by CUDA kernel, with the GEMMs' achieved TFLOP/s; K4 and
+   K5 beside their first designs, in turns (old, new, new, old) and
+   traced by CUDA kernel, K5 on a 160-patch chunk and on a GID15-sized
+   chunk of 1,920, and the whole fused augmentation preset per chunk
+   split into K5, the uint8 rounding and the masks' gather.
 
 The last two lines are a JSON object of per-kernel numbers and the
 result line ``{"ok": true, "device": {...}}``.
@@ -62,6 +68,7 @@ result line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import re
@@ -414,15 +421,19 @@ def time_k2() -> dict:
 
 # -- K5: fused augmentation ------------------------------------------------------
 B_CHUNK = 160                      # patches of one training chunk
+B_GID15 = 1920                     # patches of a chunk of GID15's scenes
+# (P, C) for the launch-plan check: the chunk shapes, a ragged P, a band
+# staged in two pieces, a patch too wide to stage
+PLAN_SHAPES = [(224, 3), (224, 4), (97, 3), (512, 4), (3100, 1)]
 
 
-def k5_inputs(c, seed=0):
+def k5_inputs(c, seed=0, b=B_CHUNK):
     from cvcs_tpu_torch.ops import augment
 
     g = torch.Generator(device="cuda").manual_seed(seed + c)
-    img = torch.randint(0, 256, (B_CHUNK, 224, 224, c), generator=g,
+    img = torch.randint(0, 256, (b, 224, 224, c), generator=g,
                         device="cuda", dtype=torch.uint8)
-    flips, rots, factors = augment.draw_dihedral(B_CHUNK, 0.6, g)
+    flips, rots, factors = augment.draw_dihedral(b, 0.6, g)
     mean = torch.linspace(60.0, 120.0, c, device="cuda")
     std = torch.linspace(30.0, 70.0, c, device="cuda")
     return img, flips, rots, factors, mean, std
@@ -451,8 +462,10 @@ def k5_library(img, flips, rots, factors, mean, std):
 
 def check_k5() -> float:
     """K5 vs its plain version on a training chunk, C 3 and 4, with a
-    non-identity band mean/std: equal elements except near floor
-    boundaries (>= 99.9% equal, the rest within 1/std)."""
+    non-identity band mean/std: every element equal (both take the
+    grayscale mean as an exact f32 sum of integers times the f32
+    reciprocal of P*P, and the blend with separately rounded operations);
+    the launch plan the built kernel computes equal to ``band_plan``'s."""
     from cvcs_tpu_torch.ops import augment
 
     worst = 0.0
@@ -463,37 +476,166 @@ def check_k5() -> float:
         want = augment.fused_augment_plain(*args)
         lib = k5_library(*args)
         err = (got - want).abs().max().item()
-        equal = (got == want).float().mean().item()
-        ok = (equal >= 0.999 and bool(((got - want).abs()
-                                       <= 1 / args[5] + 1e-6).all())
-              and torch.equal(lib, want))
-        log(f"  K5 B={B_CHUNK} P=224 C={c}: {equal * 100:.4f}% elements equal"
-            f" to plain, max abs err {err:.3e}; library composite equal to "
-            f"plain: {torch.equal(lib, want)} {'ok' if ok else 'FAIL'}")
+        differ = int((got != want).sum())           # a count, not a mean
+        ok = differ == 0 and torch.equal(lib, want)
+        log(f"  K5 B={B_CHUNK} P=224 C={c}: "
+            f"{(1 - differ / got.numel()) * 100:.4f}% elements equal to "
+            f"plain ({differ} differ), max abs err {err:.3e}; library "
+            f"composite equal to plain: {torch.equal(lib, want)} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"K5 C={c}: {equal} equal, err {err}")
+            raise AssertionError(f"K5 C={c}: {differ} elements differ")
         worst = max(worst, err)
+    plans = {shape: (augment.kernel_plan(*shape), augment.band_plan(*shape))
+             for shape in PLAN_SHAPES}
+    log("  K5 launch plans (cluster, rows per CTA, rows staged at once, "
+        "shared memory bytes), the kernel's = band_plan's: " + "; ".join(
+            f"P {p} C {c}: {tuple(k.values())}" + ("" if k == b else " FAIL")
+            for (p, c), (k, b) in plans.items()))
+    if any(k != b for k, b in plans.values()):
+        raise AssertionError("K5's launch plan differs from band_plan")
     return worst
 
 
-def time_k5() -> dict:
+def first_designs():
+    """The first designs of K4 and K5 (``csrc/fused_ce_v1.cu``,
+    ``csrc/augment_v1.cu``), which the port no longer calls, as op calls
+    with their wrappers as they were: phase 7 times them in turns with
+    the redesigns."""
+    from cvcs_tpu_torch.ops import _build
+
+    bwd = _build.load("fused_ce_v1").cvcs_ce_bwd_v1
+    bwd.restype = ctypes.c_int
+    bwd.argtypes = ([ctypes.c_void_p] * 6
+                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    aug = _build.load("augment_v1").cvcs_fused_augment_v1
+    aug.restype = ctypes.c_int
+    aug.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                    + [ctypes.c_void_p])
+
+    def k4(logits, labels, weights, g, wsum):
+        n, c = logits.shape
+        g = g.to(torch.float32).contiguous()
+        out = torch.empty((n, c), dtype=torch.float32, device=logits.device)
+        with torch.cuda.device(logits.device):
+            rc = bwd(logits.data_ptr(), labels.data_ptr(), weights.data_ptr(),
+                     g.data_ptr(), wsum.data_ptr(), out.data_ptr(), n, c,
+                     torch.cuda.current_stream(logits.device).cuda_stream)
+        assert rc == 0, rc
+        return out
+
+    def k5(images, flips, rots, factors, mean, std):
+        b, p, _, c = images.shape
+        args = [flips.to(torch.int32).contiguous(),
+                rots.to(torch.int32).contiguous(),
+                factors.to(torch.float32).contiguous(),
+                mean.to(torch.float32).contiguous(),
+                std.to(torch.float32).contiguous()]
+        out = torch.empty(images.shape, dtype=torch.float32,
+                          device=images.device)
+        with torch.cuda.device(images.device):
+            rc = aug(images.contiguous().data_ptr(),
+                     *[a.data_ptr() for a in args], out.data_ptr(), b, p, c,
+                     torch.cuda.current_stream(images.device).cuda_stream)
+        assert rc == 0, rc
+        return out
+
+    return k4, k5
+
+
+def in_turns(old, new, iters: int = 10) -> dict:
+    """CUDA-event times of two versions in turns: old, new, new, old."""
+    t = [cuda_ms(f, iters) for f in (old, new, new, old)]
+    return dict(old_ms=(t[0] + t[3]) / 2, ms=(t[1] + t[2]) / 2, turns=t)
+
+
+def traced_split(fn, n: int = 10) -> dict:
+    """Device ms per launch of each CUDA kernel ``fn`` issues, traced over
+    ``n`` calls, by kernel name: each kernel's traced time over the
+    launches the trace recorded, which can be fewer than ``n``."""
+    prof = device_profile(lambda: [fn() for _ in range(n)])
+    out, counts = {}, {}
+    for name, (ms, count) in prof["by_name"].items():
+        key = re.sub(r"\(.*$", "", name.replace("(anonymous namespace)::", "")
+                     .removeprefix("void "))[:48]
+        out[key] = out.get(key, 0.0) + ms
+        counts[key] = counts.get(key, 0) + count
+    log(f"    traced {n} calls, launches recorded: {counts}")
+    return {k: out[k] / counts[k] for k in out}
+
+
+def split_text(split: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in
+                     sorted(split.items(), key=lambda kv: -kv[1]))
+
+
+def time_k5(v1) -> dict:
+    """K5 on a 160-patch chunk and on a GID15-sized chunk of 1,920: the
+    redesign and the first design in turns (CUDA events) and traced by
+    CUDA kernel; the plain version and the library composite on the
+    160-patch chunk; then the whole fused preset per chunk
+    (``data/augment.py`` ``fused_dihedral_augment``: K5, the uint8
+    rounding, the masks' dihedral gather), each part timed and the
+    preset traced."""
+    from cvcs_tpu_torch.data import augment as data_augment
     from cvcs_tpu_torch.ops import augment
 
-    args = k5_inputs(3)
     before = augment.launches
-    r = dict(ms=cuda_ms(lambda: augment.fused_augment(*args)),
-             plain_ms=cuda_ms(lambda: augment.fused_augment_plain(*args)),
-             library_ms=cuda_ms(lambda: k5_library(*args)))
+    r = {}
+    for b in (B_CHUNK, B_GID15):
+        args = k5_inputs(3, b=b)
+        new = (lambda args=args: augment.fused_augment(*args))
+        old = (lambda args=args: v1(*args))
+        t = in_turns(old, new)
+        t["split"] = traced_split(new)
+        t["old_split"] = traced_split(old)
+        t["device_ms"] = sum(t["split"].values())
+        t["old_device_ms"] = sum(t["old_split"].values())
+        nbytes = b * 224 * 224 * 3 * (1 + 4)
+        t["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        t["ops_ms"] = b * 224 * 224 * 3 * 12 / PEAK_FLOPS[torch.float32] * 1e3
+        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        same = torch.equal(new(), old())
+        if b == B_CHUNK:
+            t["plain_ms"] = cuda_ms(lambda: augment.fused_augment_plain(*args))
+            t["library_ms"] = cuda_ms(lambda: k5_library(*args))
+        log(f"  K5 B={b} P=224 C=3 (bound {t['bound_ms']:.4f} ms, bytes): "
+            f"redesign {t['ms']:.4f} ms by events ({t['bound_ms'] / t['ms'] * 100:.1f}% "
+            f"of bound), first design {t['old_ms']:.4f} ms (turns old, new, "
+            f"new, old: {', '.join(f'{x:.4f}' for x in t['turns'])}); traced "
+            f"per call: {split_text(t['split'])} | first design "
+            f"{split_text(t['old_split'])}; outputs equal: {same}"
+            + (f"; plain {t['plain_ms']:.3f} ms, library composite "
+               f"{t['library_ms']:.3f} ms" if b == B_CHUNK else ""))
+        r[b] = t
+        del args
+
+        img, fl, ro, fa, _, _ = k5_inputs(3, b=b)
+        masks = torch.randint(0, 16, (b, 224, 224), device="cuda",
+                              dtype=torch.int32)
+        zero, one = torch.zeros(3, device="cuda"), torch.ones(3, device="cuda")
+        k5_out = augment.fused_augment(img, fl, ro, fa, zero, one)
+        parts = dict(
+            preset=cuda_ms(lambda: data_augment.fused_dihedral_augment(
+                img, masks, fl, ro, fa)),
+            K5=cuda_ms(lambda: augment.fused_augment(img, fl, ro, fa, zero,
+                                                     one)),
+            rounding=cuda_ms(lambda: torch.clamp(torch.round(k5_out), 0,
+                                                 255).to(torch.uint8)),
+            masks=cuda_ms(lambda: augment.dihedral(masks, fl, ro)))
+        split = traced_split(lambda: data_augment.fused_dihedral_augment(
+            img, masks, fl, ro, fa))
+        log(f"  fused preset B={b}: {parts['preset']:.4f} ms per chunk by "
+            f"events = K5 {parts['K5']:.4f} + uint8 rounding "
+            f"{parts['rounding']:.4f} + masks' dihedral gather "
+            f"{parts['masks']:.4f} (each alone); traced per call: "
+            f"{split_text(split)}")
+        r[b]["preset"] = dict(parts, split=split)
+        del img, masks, k5_out
     augment.launches = before
-    nbytes = B_CHUNK * 224 * 224 * 3 * (1 + 4)
-    r["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
-    r["ops_ms"] = B_CHUNK * 224 * 224 * 3 * 12 / PEAK_FLOPS[torch.float32] * 1e3
-    r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
-    log(f"  K5 B={B_CHUNK} P=224 C=3: kernel {r['ms']:.3f} ms, plain "
-        f"{r['plain_ms']:.3f} ms, library composite {r['library_ms']:.3f} ms,"
-        f" bound {r['bound_ms']:.4f} ms (bytes; kernel at "
-        f"{r['bound_ms'] / r['ms'] * 100:.1f}% of bound)")
-    return r
+    out = dict(r[B_CHUNK])
+    out["gid15_chunk"] = r[B_GID15]
+    return out
 
 
 # -- K3 / K4: fused weighted cross-entropy --------------------------------
@@ -551,8 +693,10 @@ def check_k3k4() -> dict:
         repeats = [fused_ce._fwd_launch(x, lab, w) for _ in range(2)]
         bit_equal = all(torch.equal(a, b) for r in repeats
                         for a, b in zip(r, (loss_sum, wsum, loss)))
+        k4_equal = all(torch.equal(fused_ce._bwd_launch(x, lab, w, g, wsum),
+                                   dx) for _ in range(2))
         ok = (max(rel) <= TOL_CE and err <= TOL_CE * max(1.0, big)
-              and err <= TOL_CE * big and bit_equal
+              and err <= TOL_CE * big and bit_equal and k4_equal
               and bool(torch.isfinite(dx).all()))
         n = x.shape[0]
         log(f"  K3 {name:>6} N={n} C={NC}: loss {float(loss):.6f} vs plain "
@@ -561,9 +705,11 @@ def check_k3k4() -> dict:
             f"{TOL_CE:.0e}); 3 runs bit-equal: {bit_equal}")
         log(f"  K4 {name:>6} N={n} C={NC}: dlogits max abs err {err:.3e}, "
             f"|plain|max {big:.3e}, err/|plain|max {err / big:.2e} (tol "
-            f"{TOL_CE:.0e}) {'ok' if ok else 'FAIL'}")
+            f"{TOL_CE:.0e}); 3 runs bit-equal: {k4_equal} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"K3/K4 {name}: {rel}, {err}, {bit_equal}")
+            raise AssertionError(f"K3/K4 {name}: {rel}, {err}, {bit_equal}, "
+                                 f"{k4_equal}")
         out["k3_err"] = max(out["k3_err"], abs(float(loss) - float(
             want_sum / want_w)))
         out["k4_err"] = max(out["k4_err"], err)
@@ -591,9 +737,11 @@ def ce_library(x, lab, w):
             lambda: torch.autograd.grad(loss, leaf, retain_graph=True))
 
 
-def time_k3k4() -> tuple[dict, dict]:
+def time_k3k4(v1) -> tuple[dict, dict]:
     """K3 and K4 at the recipe step's shape: kernel (CUDA events, and the
-    device time of a traced loop), plain and library times; bound from
+    device time of a traced loop), plain and library times; K4's redesign
+    and its first design ``v1`` in turns, both by events and traced by
+    CUDA kernel; bound from
     the bytes the function needs (each input it uses read once, each
     output written once) and its f32 operations (about 5 per logit read
     for K3, 8 for K4). A pixel of weight 0 (the ignored class,
@@ -611,17 +759,24 @@ def time_k3k4() -> tuple[dict, dict]:
     k3 = dict(ms=cuda_ms(lambda: fused_ce._fwd_launch(x, lab, w)),
               plain_ms=cuda_ms(lambda: fused_ce.ce_sums_plain(x, lab, w)),
               library_ms=cuda_ms(lib_fwd))
-    k4 = dict(ms=cuda_ms(lambda: fused_ce._bwd_launch(x, lab, w, g, wsum)),
-              plain_ms=cuda_ms(lambda: fused_ce.ce_grad_plain(x, lab, w,
+    k4 = in_turns(lambda: v1(x, lab, w, g, wsum),
+                  lambda: fused_ce._bwd_launch(x, lab, w, g, wsum))
+    k4.update(plain_ms=cuda_ms(lambda: fused_ce.ce_grad_plain(x, lab, w,
                                                               scale)),
               library_ms=cuda_ms(lib_bwd))
+    k4["split"] = traced_split(lambda: fused_ce._bwd_launch(x, lab, w, g,
+                                                            wsum))
+    k4["old_split"] = traced_split(lambda: v1(x, lab, w, g, wsum))
+    k4["old_device_ms"] = sum(k4["old_split"].values())
+    same = float((v1(x, lab, w, g, wsum)
+                  - fused_ce._bwd_launch(x, lab, w, g, wsum)).abs().max())
     for r, key, fn in (
             (k3, "K3", lambda: fused_ce._fwd_launch(x, lab, w)),
             (k4, "K4", lambda: fused_ce._bwd_launch(x, lab, w, g, wsum))):
         # the events time of a back-to-back loop includes the wrapper's
         # host cost; the trace gives the kernels' own device time
         r["device_ms"] = device_profile(
-            lambda: [fn() for _ in range(10)])[key] / 10
+            lambda: [fn() for _ in range(10)], per_launch=True)[key]
     lib_loss = float(lib_fwd())
     k3_loss = float(fused_ce._fwd_launch(x, lab, w)[2])
     fused_ce.launches, fused_ce.bwd_launches = before  # not the path's
@@ -640,6 +795,10 @@ def time_k3k4() -> tuple[dict, dict]:
         r["bound_bytes"] = nbytes
     log(f"  pixels of nonzero weight: {n_w} of {n} ({n_w / n * 100:.2f}%); "
         f"bytes needed: K3 {k3['bound_bytes']}, K4 {k4['bound_bytes']}")
+    log(f"  K4 redesign vs first design in turns (old, new, new, old): "
+        f"{', '.join(f'{t:.4f}' for t in k4['turns'])} ms; traced per call: "
+        f"{split_text(k4['split'])} | first design "
+        f"{split_text(k4['old_split'])}; max |difference| {same:.2e}")
     for name, r in (("K3", k3), ("K4", k4)):
         log(f"  {name} N={n} C={NC} f32: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, F.cross_entropy "
@@ -665,7 +824,7 @@ def synthetic_scene(h, w, seed):
 CONV_NAMES = ("xmma", "cudnn", "conv", "gemm", "cutlass")
 
 
-def device_profile(fn, attempts: int = 3) -> dict:
+def device_profile(fn, attempts: int = 3, per_launch: bool = False) -> dict:
     """Run ``fn`` under torch.profiler: device time by kernel name, the
     span from the first kernel's start to the last one's end, and the
     device's idle share of that span. A trace that holds no device event
@@ -704,7 +863,14 @@ def device_profile(fn, attempts: int = 3) -> dict:
     span_ms = (end - spans[0][0]) / 1e3
 
     def ms_of(key):
-        return sum(t for name, (t, _) in by_name.items() if key in name)
+        """Traced ms of the kernels whose name holds ``key``: in all, or
+        per op call (an op call launches each of its kernels once, so per
+        the most launches of one of them that the trace recorded)."""
+        hits = [(t, c) for name, (t, c) in by_name.items() if key in name]
+        total = sum(t for t, _ in hits)
+        if not per_launch:
+            return total
+        return total / max([1] + [c for _, c in hits])
 
     conv_ms = sum(t for name, (t, _) in by_name.items()
                   if any(k in name for k in CONV_NAMES) and "swin" not in name)
@@ -1450,7 +1616,8 @@ def main() -> int:
         f"{torch.cuda.device_count()}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    sources = ("swin_attn", "swin_attn_bwd", "augment", "fused_ce")
+    sources = ("swin_attn", "swin_attn_bwd", "augment", "fused_ce",
+               "augment_v1", "fused_ce_v1")   # the last two: phase 7's yardsticks
     secs = _build.build(list(sources))
     for name in sources:
         ptxas = [ln.strip() for ln in _build.build_log(name).splitlines()
@@ -1483,8 +1650,9 @@ def main() -> int:
     k1_times = time_k1()
     k1_train = time_k1(K2_CASES, K2_PER_STEP, B_TRAIN, "per train step")
     k2_times = time_k2()
-    k5_times = time_k5()
-    k3_times, k4_times = time_k3k4()
+    v1_k4, v1_k5 = first_designs()
+    k5_times = time_k5(v1_k5)
+    k3_times, k4_times = time_k3k4(v1_k4)
 
     tl = result["train"]["launches"]
     ul = result["unet_train"]["launches"]
@@ -1507,7 +1675,11 @@ def main() -> int:
                      "composite: torch.flip / torch.rot90 per draw group, "
                      "then the contrast and normalisation ops",
                      f"one training chunk of {B_CHUNK} patches 224x224x3 "
-                     "(1 launch)"),
+                     "(1 launch)", old_ms=k5_times["old_ms"],
+                     device_ms=k5_times["device_ms"],
+                     old_device_ms=k5_times["old_device_ms"],
+                     split=k5_times["split"], preset=k5_times["preset"],
+                     gid15_chunk=k5_times["gid15_chunk"]),
         kernel_entry(fused_ce.KERNEL, ul["K3"], ce_err["k3_err"], k3_times,
                      "F.cross_entropy(NCHW logits, weight, ignore_index=0) "
                      "forward",
@@ -1519,7 +1691,10 @@ def main() -> int:
                      "logits, weight, ignore_index=0)",
                      f"one Unetv2 train step at p 224, batch {B_TRAIN} (1 "
                      "launch)", max_scaled_err=ce_err["k4_rel"],
-                     device_ms=k4_times["device_ms"])],
+                     device_ms=k4_times["device_ms"],
+                     old_ms=k4_times["old_ms"],
+                     old_device_ms=k4_times["old_device_ms"],
+                     split=k4_times["split"])],
         "scene_tiles_per_s": result["scene_tiles_per_s"],
         "serve_rasters_per_s": result["serve_rasters_per_s"],
         "serve_launches": result["serve_launches"],

@@ -4,15 +4,19 @@ Replaces the Pallas TPU kernel ``fused_augment`` / ``_augment_kernel`` of
 ``cvcs_tpu/ops/pallas_augment.py``. The kernel is ``csrc/augment.cu``,
 CUDA C++ for ``sm_90a``, built with ``nvcc`` at first use and bound with
 ctypes (see :mod:`._build`). Its source says what it computes, what
-bounds it (memory) and how the dihedral transform becomes index
-arithmetic on the load.
+bounds it (memory) and its design: a thread-block cluster per patch, one
+CTA per band of output rows, each staging in shared memory the source
+region its band maps from, the grayscale mean summed from the same staged
+bytes and exchanged through distributed shared memory, then 16-byte
+stores. One op call is one CUDA kernel, ``augment_kernel``.
 
 :func:`fused_augment` launches the kernel for a CUDA tensor and raises on
 what it does not take; for a CPU tensor it runs
 :func:`fused_augment_plain`, the same function in plain torch. The random
 draws (flips, rot90 counts, contrast factors) are arguments, as in the
 JAX kernel; :func:`draw_dihedral` makes them from a ``torch.Generator``.
-``launches`` counts kernel launches.
+:func:`band_plan` is the kernel's launch plan, the same arithmetic as
+``make_plan`` in the source. ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -60,10 +64,51 @@ def fused_augment_plain(images, flips, rots, factors, band_mean, band_std):
     c = x.shape[-1]
     gray = (0.2989 * x[..., 0] + 0.587 * x[..., 1 % c]
             + 0.114 * x[..., 2 % c])
-    mean_g = torch.floor(gray).mean(dim=(1, 2)).view(-1, 1, 1, 1)
+    # the mean as XLA takes it in the JAX kernel (and torch's mean on the
+    # card): the sum times the f32 reciprocal of the pixel count. torch's
+    # mean on the CPU divides instead, which rounds differently.
+    npix = x.shape[1] * x.shape[2]
+    mean_g = (torch.floor(gray).sum(dim=(1, 2)) * (1.0 / npix)).view(
+        -1, 1, 1, 1)
     f = factors.to(torch.float32).view(-1, 1, 1, 1)
     x = torch.floor(torch.clamp(f * x + (1.0 - f) * mean_g, 0.0, 255.0))
     return (x - band_mean.to(torch.float32)) / band_std.to(torch.float32)
+
+
+# make_plan's constants in csrc/augment.cu
+MAX_CLUSTER = 8                  # CTAs per patch: the portable cluster size
+STAGE_BUDGET = 96 * 1024         # staged source bytes per CTA
+LUT_MAX_C = 16                   # bands that get a full output table
+
+
+def _seg_pitch(n: int) -> int:
+    return -(-n // 16) * 16 + 16
+
+
+def _stage_bytes(rows: int, p: int, c: int) -> int:
+    """Shared memory that staging ``rows`` output rows takes: the larger
+    of the even-rot90 region (``rows`` source rows) and the odd one (a
+    column band: ``p`` source rows of ``rows`` pixels), each segment padded
+    to its own 16-byte windows."""
+    return max(rows * _seg_pitch(p * c), p * _seg_pitch(rows * c))
+
+
+def band_plan(p: int, c: int) -> dict:
+    """The kernel's launch plan for (P, C) patches: ``cluster`` CTAs per
+    patch, CTA r owning output rows [r * band_rows, (r + 1) * band_rows)
+    (clipped to P), staged ``stage_rows`` rows at a time (0: read from
+    device memory, for patches too wide to stage one row), with
+    ``smem`` bytes of dynamic shared memory (the output table, then the
+    staged region)."""
+    cluster = min(MAX_CLUSTER, p)
+    band_rows = -(-p // cluster)
+    rows = band_rows
+    if _stage_bytes(rows, p, c) > STAGE_BUDGET:
+        rows = max((r for r in range(band_rows + 1)
+                    if r == 0 or _stage_bytes(r, p, c) <= STAGE_BUDGET))
+    table = (c if c <= LUT_MAX_C else 1) * 256 * 4
+    return dict(cluster=cluster, band_rows=band_rows, stage_rows=rows,
+                smem=table + (_stage_bytes(rows, p, c) if rows else 0))
 
 
 def draw_dihedral(b: int, contrast: float, generator: torch.Generator):
@@ -107,6 +152,19 @@ def _kernel():
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     return fn
+
+
+def kernel_plan(p: int, c: int) -> dict:
+    """The plan the built kernel computes for (P, C) (``cvcs_augment_plan``
+    of ``csrc/augment.cu``), to hold against :func:`band_plan`."""
+    from cvcs_tpu_torch.ops import _build
+
+    fn = _build.load("augment").cvcs_augment_plan
+    fn.restype = None
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 4)()
+    fn(p, c, out)
+    return dict(zip(("cluster", "band_rows", "stage_rows", "smem"), out))
 
 
 def fused_augment(images, flips, rots, factors, band_mean, band_std):

@@ -12,7 +12,11 @@ Replaces the Pallas TPU kernels launched by ``_grid_call``
 Both are in ``csrc/fused_ce.cu``, CUDA C++ for ``sm_90a``, built with
 ``nvcc`` at first use and bound with ctypes (see :mod:`._build`). The
 source says how they read the NHWC logits in place, how the forward sums
-in a fixed order without atomics, and what bounds them (memory).
+in a fixed order without atomics, what bounds them (memory), and K4's
+design for Hopper (a group of lanes per pixel, labels read ahead, a grid
+sized from the SM count). A K3 op call issues two CUDA kernels
+(``ce_fwd_partials``, ``ce_fwd_finish``), a K4 op call one
+(``ce_bwd_groups``).
 
 Semantics are ``losses.cross_entropy``'s (torch ``nn.CrossEntropyLoss``
 with class weights and ``ignore_index``): a label outside [0, C) has
@@ -126,18 +130,25 @@ def _fwd_launch(logits, labels, weights):
 
 
 def _bwd_launch(logits, labels, weights, g, wsum):
-    """Launch K4; returns (N, C) f32 dlogits."""
+    """Launch K4; returns (N, C) f32 dlogits. The autograd backward calls
+    it once a step, so it converts ``g`` and switches the current device
+    only where it has to."""
     global bwd_launches
     _, bwd, _ = _kernels()
     n, c = logits.shape
     dev = logits.device
-    g = g.to(torch.float32).contiguous()
+    if g.dtype != torch.float32:
+        g = g.to(torch.float32)
     dlogits = torch.empty((n, c), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = bwd(logits.data_ptr(), labels.data_ptr(), weights.data_ptr(),
-                 g.data_ptr(), wsum.data_ptr(), dlogits.data_ptr(), n, c,
-                 stream)
+    if n == 0:
+        return dlogits
+    args = (logits.data_ptr(), labels.data_ptr(), weights.data_ptr(),
+            g.data_ptr(), wsum.data_ptr(), dlogits.data_ptr(), n, c)
+    if dev.index == torch.cuda.current_device():
+        rc = bwd(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = bwd(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_ce backward kernel launch failed: CUDA "
                            f"error {rc}")

@@ -161,3 +161,127 @@ def test_draws_come_from_the_generator():
     assert 0.4 <= float(factors.min()) and float(factors.max()) < 1.6
     ref = taug.draw_reference(64, taug.AugmentConfig(), g1)
     assert all(d.shape == (64,) for d in ref)
+
+
+@pytest.mark.parametrize("draw", range(16))
+def test_plain_kernel_matches_jax_each_draw(draw):
+    """Each (flip, rot90) draw on its own, at P 12: 144 pixels, whose
+    reciprocal is not exact in f32, so the mean's rounding shows. This is
+    the reference the card's kernel-vs-plain check leans on. The rule is
+    the module's: XLA on the CPU contracts the blend into a fused
+    multiply-add, which torch's separate ops do not, and an element near a
+    floor boundary may land one level apart."""
+    b, p, c = 16, 12, 3
+    img, _ = _images(b, p, c, seed=60 + draw)
+    flips = np.full(b, draw // 4)
+    rots = np.full(b, draw % 4)
+    factors = np.linspace(0.4, 1.6, b).astype(np.float32)
+    mean = np.array([70.0, 90.0, 110.0], np.float32)
+    std = np.array([30.0, 45.0, 60.0], np.float32)
+    want = jax_fused_augment(
+        jnp.asarray(img), jnp.asarray(flips, jnp.int32),
+        jnp.asarray(rots, jnp.int32), jnp.asarray(factors), jnp.asarray(mean),
+        jnp.asarray(std), interpret=True)
+    got = tops.fused_augment(
+        torch.from_numpy(img), torch.from_numpy(flips).int(),
+        torch.from_numpy(rots).int(), torch.from_numpy(factors),
+        torch.from_numpy(mean), torch.from_numpy(std))
+    _assert_k5_close(got.numpy(), want, std)
+
+
+def dihedral_map(flip: int, rot: int, p: int) -> tuple:
+    """``csrc/augment.cu``'s dihedral map as integer coefficients: output pixel
+    (y, x) of a (flip, rot) patch reads source (oy + yy*y + yx*x,
+    ox + xy*y + xx*x); rot90 x k first, then the flips, as :func:`dihedral`.
+    Returns (oy, yy, yx, ox, xy, xx)."""
+    pm = p - 1
+    k = min(max(rot, 0), 3)
+    oy, yy, yx, ox, xy, xx = ((0, 1, 0, 0, 0, 1), (0, 0, 1, pm, -1, 0),
+                              (pm, -1, 0, pm, 0, -1), (pm, 0, -1, 0, 1, 0))[k]
+    if flip & 2:
+        oy, yy, yx = pm - oy, -yy, -yx
+    if flip & 1:
+        ox, xy, xx = pm - ox, -xy, -xx
+    return oy, yy, yx, ox, xy, xx
+
+
+def source_band(y0: int, y1: int, p: int, flip: int, rot: int):
+    """The source region that output rows [y0, y1) of a (flip, rot) patch
+    read: ``("rows", s0, s1)`` (even rot90 counts) or ``("cols", s0, s1)``
+    (odd ones), as ``csrc/augment.cu`` stages it (``stage_piece``)."""
+    oy, yy, _, ox, xy, _ = dihedral_map(flip, rot, p)
+    odd = yy == 0
+    o, d = (ox, xy) if odd else (oy, yy)
+    s0 = o + y0 if d > 0 else o - (y1 - 1)
+    return ("cols" if odd else "rows", s0, s0 + (y1 - y0))
+
+
+PLAN_SIZES = [(p, c) for p in (1, 2, 5, 7, 8, 9, 33, 97, 224, 256, 512, 513,
+                               2048, 3100, 8192)
+              for c in (1, 2, 3, 4, 13, 17)]
+
+
+def test_band_plan_covers_every_row_once():
+    """The CTAs' bands, and the staged pieces of each band, cover the
+    output rows exactly once; the staged region fits its budget and the
+    whole plan fits a CTA's shared memory."""
+    for p, c in PLAN_SIZES:
+        plan = tops.band_plan(p, c)
+        assert 1 <= plan["cluster"] <= tops.MAX_CLUSTER
+        covered = np.zeros(p, int)
+        for r in range(plan["cluster"]):
+            y0 = min(p, r * plan["band_rows"])
+            y1 = min(p, y0 + plan["band_rows"])
+            piece = plan["stage_rows"] or max(y1 - y0, 1)
+            for ys in range(y0, y1, piece):
+                covered[ys:min(y1, ys + piece)] += 1
+        assert (covered == 1).all(), (p, c)
+        rows = plan["stage_rows"]
+        if rows:
+            assert tops._stage_bytes(rows, p, c) <= tops.STAGE_BUDGET
+        if rows < plan["band_rows"]:      # the most rows within the budget
+            assert tops._stage_bytes(rows + 1, p, c) > tops.STAGE_BUDGET
+        assert plan["smem"] <= 227 * 1024
+
+
+@pytest.mark.parametrize("p", [7, 12, 33])
+def test_band_preimages_partition_the_source(p):
+    """Under each of the 16 draws (8 dihedral maps), the source pixels that
+    a band of output rows reads are exactly the region the kernel stages
+    (a row band for even rot90 counts, a column band for odd), and the
+    bands' regions partition the patch."""
+    plan = tops.band_plan(p, 1)
+    index = torch.arange(p * p).view(1, p, p)
+    for flip in range(4):
+        for rot in range(4):
+            src = tops.dihedral(index, torch.tensor([flip]),
+                                torch.tensor([rot]))[0]
+            seen = np.zeros(p * p, int)
+            for r in range(plan["cluster"]):
+                y0 = min(p, r * plan["band_rows"])
+                y1 = min(p, y0 + plan["band_rows"])
+                read = src[y0:y1].flatten().numpy()
+                seen[read] += 1
+                kind, s0, s1 = source_band(y0, y1, p, flip, rot)
+                region = np.zeros((p, p), bool)
+                if kind == "rows":
+                    region[s0:s1] = True
+                else:
+                    region[:, s0:s1] = True
+                assert set(read) == set(np.flatnonzero(region))
+            assert (seen == 1).all()
+
+
+def test_fused_augment_rejects_what_the_kernel_does_not_take():
+    img = torch.zeros(2, 8, 8, 3, dtype=torch.uint8)
+    z2, ones = torch.zeros(2), torch.ones(3)
+    before = tops.launches
+    with pytest.raises(TypeError, match="uint8"):
+        tops.fused_augment(img.float(), z2, z2, z2, ones, ones)
+    with pytest.raises(ValueError, match="images must be"):
+        tops.fused_augment(img[:, :4], z2, z2, z2, ones, ones)
+    with pytest.raises(ValueError, match="rots must be"):
+        tops.fused_augment(img, z2, torch.zeros(3), z2, ones, ones)
+    with pytest.raises(ValueError, match="band_std must be"):
+        tops.fused_augment(img, z2, z2, z2, ones, torch.ones(4))
+    assert tops.launches == before

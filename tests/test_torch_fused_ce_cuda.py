@@ -15,6 +15,12 @@ wsum and the loss 1e-5 relative (both in f32, only the summation order
 differs); dlogits 1e-5 * max(1, |plain|max) and, because dlogits of a
 mean over 5e5 pixels are ~1e-6, 1e-5 * |plain|max. Two K3 runs are
 bit-equal (no atomics).
+
+K4's edges (``EDGES``), at the same tolerances: class counts 16, 15, 7,
+32 and 1 (the float4 lane groups and the one-float-per-lane path), a
+ragged N and N = 0, logits and dlogits at an offset that breaks 16-byte
+alignment, every row of weight 0, labels 255 and -1; and three K4 runs
+bit-equal.
 """
 
 import pytest
@@ -100,3 +106,107 @@ def test_autograd_op_launches_both_kernels(card):
     assert abs(float(loss) - float(want)) <= 1e-5 * abs(float(want))
     err = float((logits.grad.cpu() - ref.grad).abs().max())
     assert err <= 1e-5 * float(ref.grad.abs().max())
+
+
+# (C, N): K4's lane groups (C / 4 = 4, 8 lanes; C off 4: one float a lane,
+# 16, 8, 1 lanes), a ragged N
+EDGES = {"c16": (16, 4099), "c15": (15, 4099), "c7": (7, 1037),
+         "c32": (32, 2053), "c1": (1, 999), "c16_n1": (16, 1)}
+
+
+def _edge_inputs(c, n, device, seed):
+    """(N, C) logits, labels with -1 and 255 among classes 0..C-1, the
+    class weights with class 0 ignored (when C > 1)."""
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn(n, c, generator=g) * 3
+    labels = torch.randint(0, c, (n,), generator=g, dtype=torch.int32)
+    u = torch.rand(n, generator=g)
+    labels[u < 0.02] = -1
+    labels[u > 0.98] = 255
+    w = fused_ce.effective_weights(torch.rand(c, generator=g) + 0.5, c,
+                                   0 if c > 1 else None, device)
+    return logits.to(device), labels.to(device), w
+
+
+def _bwd_into(x, lab, w, g, wsum, out):
+    """K4 through its C entry point, into a caller's (N, C) ``out``."""
+    _, bwd, _ = fused_ce._kernels()
+    n, c = x.shape
+    rc = bwd(x.data_ptr(), lab.data_ptr(), w.data_ptr(), g.data_ptr(),
+             wsum.data_ptr(), out.data_ptr(), n, c,
+             torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+
+
+def _assert_grad_close(got, x, lab, w, g, wsum):
+    want = fused_ce.ce_grad_plain(x, lab, w, g / wsum.clamp(min=1e-12))
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    big = float(want.abs().max()) if want.numel() else 0.0
+    assert err <= 1e-5 * max(1.0, big) and err <= 1e-5 * big, (err, big)
+    c = x.shape[1]
+    dead = (lab < 0) | (lab >= c) | (w[lab.clamp(0, c - 1).long()] == 0)
+    assert not got[dead].any()
+
+
+@pytest.mark.parametrize("edge", list(EDGES))
+def test_backward_kernel_edges(card, edge):
+    c, n = EDGES[edge]
+    x, lab, w = _edge_inputs(c, n, card, seed=n + c)
+    _, wsum, _ = fused_ce._fwd_launch(x, lab, w)
+    g = torch.full((), 0.75, device=card)
+    before = fused_ce.bwd_launches
+    got = fused_ce._bwd_launch(x, lab, w, g, wsum)
+    torch.cuda.synchronize()
+    assert fused_ce.bwd_launches == before + 1
+    assert got.shape == (n, c) and got.dtype == torch.float32
+    _assert_grad_close(got, x, lab, w, g, wsum)
+
+
+@pytest.mark.parametrize("c", [16, 15])
+def test_backward_kernel_unaligned(card, c):
+    """Logits and dlogits 4 bytes past a 16-byte boundary: the kernel
+    takes its one-float-per-lane path and still agrees."""
+    n = 3001
+    x, lab, w = _edge_inputs(c, n, card, seed=7 + c)
+    xs = torch.empty(n * c + 1, device=card)[1:].view(n, c)
+    xs.copy_(x)
+    out = torch.full((n * c + 1,), float("nan"), device=card)[1:].view(n, c)
+    assert xs.data_ptr() % 16 and out.data_ptr() % 16
+    _, wsum, _ = fused_ce._fwd_launch(x, lab, w)
+    g = torch.ones((), device=card)
+    _bwd_into(xs, lab, w, g, wsum, out)
+    _assert_grad_close(out, x, lab, w, g, wsum)
+
+
+def test_backward_kernel_all_weight_zero(card):
+    """Every label ignored or void: sum w is 0 and every row is zero."""
+    x, lab, w = _edge_inputs(16, 2000, card, seed=11)
+    lab = torch.where(torch.arange(2000, device=card) % 2 == 0, 0, 255)
+    lab = lab.to(torch.int32)
+    _, wsum, _ = fused_ce._fwd_launch(x, lab, w)
+    assert float(wsum) == 0.0
+    got = fused_ce._bwd_launch(x, lab, w, torch.ones((), device=card), wsum)
+    torch.cuda.synchronize()
+    assert not got.any()
+
+
+def test_backward_kernel_empty(card):
+    x = torch.empty((0, 16), device=card)
+    lab = torch.empty((0,), dtype=torch.int32, device=card)
+    w = torch.ones(16, device=card)
+    wsum = torch.zeros((), device=card)
+    before = fused_ce.bwd_launches
+    got = fused_ce._bwd_launch(x, lab, w, torch.ones((), device=card), wsum)
+    torch.cuda.synchronize()
+    assert got.shape == (0, 16)
+    assert fused_ce.bwd_launches == before      # nothing to launch
+
+
+def test_backward_kernel_repeats_bit_equal(card):
+    x, lab, w = _inputs(SHAPES["step"], card, seed=4)
+    _, wsum, _ = fused_ce._fwd_launch(x, lab, w)
+    g = torch.ones((), device=card)
+    first = fused_ce._bwd_launch(x, lab, w, g, wsum).clone()
+    for _ in range(3):
+        assert torch.equal(fused_ce._bwd_launch(x, lab, w, g, wsum), first)

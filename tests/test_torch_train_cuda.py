@@ -17,8 +17,19 @@ head dims 12, 16 and 64. Tolerances on all seven outputs:
 f32 1e-4 * max(1, |plain|max) (both in f32, only summation orders
 differ); bf16 5e-2 * scale, as the JAX package's own backward test
 (``tests/test_pallas_swin.py``): a rounding point may flip one bf16 ulp
-and the flip propagates through the products. K5: equal elements except
-near floor boundaries (at least 99.9% equal, the rest within 1/std).
+and the flip propagates through the products.
+
+K5 against its plain version run on the card, at bands C 1-4, patch
+sizes P 224, 97 (rows not 16-byte aligned), 256 and 512 (staged in two
+pieces a band), batches 1, 3 and 160, with every one of the 16 (flip,
+rot90) draws: all elements equal for P <= 256 (the grayscale sum of
+integers below 2^24 is exact on both sides, and both take the mean as
+the sum times the f32 reciprocal of P*P); for P = 512 (sums above 2^24,
+which torch rounds in its own order) at least 99.9% equal and the rest
+within 1/std. Also a source 1 byte past a 16-byte boundary, 13 and 17
+bands, patches too wide for 32-bit indices (P 3100, not staged; P 2048,
+staged in pieces), and the launch plan the kernel computes against
+``band_plan``.
 """
 
 import pytest
@@ -159,22 +170,84 @@ def test_kernels_raise_where_they_cannot_run(card):
     assert augment.launches == before
 
 
-@pytest.mark.parametrize("c", [3, 4])
-def test_augment_kernel_matches_plain(card, c):
-    g = torch.Generator(device=card).manual_seed(c)
-    b, p = 16, 224
+def _k5_case(card, b, p, c, seed, shift=0):
+    g = torch.Generator(device=card).manual_seed(seed)
     img = torch.randint(0, 256, (b, p, p, c), generator=g, device=card,
                         dtype=torch.uint8)
-    flips, rots, factors = augment.draw_dihedral(b, 0.6, g)
+    _, _, factors = augment.draw_dihedral(b, 0.6, g)
+    draw = (torch.arange(b, device=card) + shift) % 16
+    flips, rots = (draw // 4).to(torch.int32), (draw % 4).to(torch.int32)
     mean = torch.linspace(60.0, 120.0, c, device=card)
     std = torch.linspace(30.0, 70.0, c, device=card)
-    before = augment.launches
-    got = augment.fused_augment(img, flips, rots, factors, mean, std)
+    return img, flips, rots, factors, mean, std
+
+
+def _assert_k5(got, want, std, exact):
+    assert got.shape == want.shape and got.dtype == torch.float32
+    differ = int((got != want).sum())     # a count: an f32 mean would round
+    equal = 1 - differ / got.numel()
+    if exact:
+        assert differ == 0, differ
+    else:
+        assert equal >= 0.999, equal
+        assert ((got - want).abs() <= 1.0 / std + 1e-6).all()
+
+
+@pytest.mark.parametrize("b", [1, 3, 160])
+@pytest.mark.parametrize("p", [224, 97, 256, 512])
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+def test_augment_kernel_matches_plain(card, c, p, b):
+    for shift in range(0, 16, b):       # every (flip, rot90) draw
+        args = _k5_case(card, b, p, c, seed=1000 * c + p + shift, shift=shift)
+        before = augment.launches
+        got = augment.fused_augment(*args)
+        torch.cuda.synchronize()
+        assert augment.launches == before + 1
+        want = augment.fused_augment_plain(*args)
+        _assert_k5(got, want, args[5], exact=p <= 256)
+
+
+@pytest.mark.parametrize("p, c", [(224, 3), (97, 3), (33, 4)])
+def test_augment_kernel_unaligned_source(card, p, c):
+    img, *rest = _k5_case(card, 16, p, c, seed=p + c)
+    shifted = torch.empty(img.numel() + 1, dtype=torch.uint8,
+                          device=card)[1:].view(img.shape)
+    shifted.copy_(img)
+    assert shifted.data_ptr() % 16
+    got = augment.fused_augment(shifted, *rest)
     torch.cuda.synchronize()
-    assert augment.launches == before + 1
-    want = augment.fused_augment_plain(img, flips, rots, factors, mean, std)
-    assert got.shape == want.shape == (b, p, p, c)
-    assert got.dtype == torch.float32
-    equal = (got == want).float().mean().item()
-    assert equal >= 0.999, equal
-    assert ((got - want).abs() <= 1.0 / std + 1e-6).all()
+    _assert_k5(got, augment.fused_augment_plain(img, *rest), rest[4],
+               exact=True)
+
+
+@pytest.mark.parametrize("p, c, staged", [(3100, 1, False), (2048, 3, True)])
+def test_augment_kernel_wide(card, p, c, staged):
+    """Patches with P^3 >= 2^32 (the kernel's 64-bit index instance):
+    P 3100, where one row's column band does not fit the staging budget
+    and the kernel reads its source bytes from device memory, and P 2048,
+    each band staged in pieces."""
+    plan = augment.band_plan(p, c)
+    assert (plan["stage_rows"] > 0) == staged
+    assert plan["stage_rows"] < plan["band_rows"]
+    for shift in (0, 5, 10, 15):
+        args = _k5_case(card, 1, p, c, seed=shift, shift=shift)
+        got = augment.fused_augment(*args)
+        torch.cuda.synchronize()
+        _assert_k5(got, augment.fused_augment_plain(*args), args[5],
+                   exact=False)
+
+
+@pytest.mark.parametrize("c", [13, 17])
+def test_augment_kernel_many_bands(card, c):
+    """13 bands take the per-band output table; 17 the blend table and a
+    divide per element."""
+    args = _k5_case(card, 16, 33, c, seed=c)
+    got = augment.fused_augment(*args)
+    torch.cuda.synchronize()
+    _assert_k5(got, augment.fused_augment_plain(*args), args[5], exact=True)
+
+
+def test_augment_plan_matches_kernel(card):
+    for p in (1, 2, 5, 7, 8, 9, 33, 97, 224, 256, 512, 513, 2048, 3100, 8192):
+        for c in (1, 2, 3, 4, 13, 17):
+            assert augment.kernel_plan(p, c) == augment.band_plan(p, c), (p, c)
