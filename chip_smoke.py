@@ -32,7 +32,9 @@ Phases (any failure raises and the script exits non-zero):
    mean and max logit errors within 1.5x the plain bf16 forward's (the
    f32 checks cannot see a wrong bf16 mma fragment; this one can).
    Then full-width Unetv2, the serve recipe's model, segments the same
-   scene (the recipe's two-by-four mesh cut to one card);
+   scene (the recipe's two-by-four mesh cut to one card), and so does
+   full-width SegformerMod (MiT-B3, 47,257,600 parameters, checked), each
+   with one forward timed and traced;
 5. the training path: ``python -m cvcs_tpu_torch.cli.train``'s ``main``
    trains full-width SwinUnet with the recipe's geometry (p 224, batch
    10, wCEL with ignore_background, SGD2, bf16, random_shift,
@@ -44,7 +46,12 @@ Phases (any failure raises and the script exits non-zero):
    canonical Unetv2 recipe (``configs/train_unetv2.yaml``: the same
    geometry with ``augmentation: True``) the same way, and one epoch of a
    ``Trainer`` built the same way with ``build_fused_ce`` as its loss: K3
-   once per train step and per validation batch, K4 once per train step;
+   once per train step and per validation batch, K4 once per train step.
+   Then SegformerMod the same way with ``augmentation: fused`` (K5 once
+   per chunk), resumed; ``cli.evaluate`` on the checkpoint the resumed
+   run wrote (the restored weights equal to the trainer's, the metrics
+   to the trainer's own evaluation, the tables printed); and one epoch
+   through ``build_fused_ce`` (K3, K4 and K5);
 6. training correctness: one f32 SwinUnet train step through the kernels
    and one through the plain versions (called directly by this script)
    from the same weights and batch agree; a 30-step bf16 fixed-batch
@@ -52,11 +59,18 @@ Phases (any failure raises and the script exits non-zero):
    through the eager wCEL agree, parameter updates included (a loss that
    passes half its gradient must not); a Unetv2 step with ``remat`` equals one
    without, BN statistics updated once, and both peak memories print;
+   one f32 SegformerMod step through K3/K4 and one through the eager wCEL
+   agree by the same rule, with the same dropout seed; two bf16 steps
+   from one dropout seed give bit-equal losses and another seed another;
+   a bf16 forward's logits are within the bf16 tolerance of an f32
+   forward's and its labels agree on >= 97.5% of the pixels (the JAX
+   package's own share is 98.50%);
 7. times (CUDA events, after warm-up; K3 and K4 also their traced device
    time) of each kernel beside its bound, its plain version and a library
    yardstick; K1 both at the serving shapes (per forward) and at the p-224
-   training shapes (per train step); for K1 and K2 also one op call
-   traced, split by CUDA kernel, with the GEMMs' achieved TFLOP/s; K4 and
+   training shapes (per train step); for K1 and K2 also three op calls
+   traced, split by CUDA kernel (each kernel's time over the launches the
+   trace recorded), with the GEMMs' achieved TFLOP/s; K4 and
    K5 beside their first designs, in turns (old, new, new, old) and
    traced by CUDA kernel, K5 on a 160-patch chunk and on a GID15-sized
    chunk of 1,920, and the whole fused augmentation preset per chunk
@@ -210,17 +224,30 @@ def check_k1() -> float:
     return worst
 
 
+# CUDA launches of each K1 / K2 kernel per op call (the rest: one)
+LAUNCHES_PER_CALL = {"swin_attn_fwd_gemm": 2, "swin_bwd_gemm": 5}
+
+
 def kernel_split(fn, n: int = 3) -> dict:
     """Device time per op call of each CUDA kernel that ``fn`` issues,
     traced over ``n`` calls, by kernel name (``swin_attn_fwd_gemm``, ...;
-    ``other`` for PyTorch's own, the parameter casts)."""
+    ``other`` for PyTorch's own, the parameter casts): each kernel's
+    traced time over the launches the trace recorded (it can drop some),
+    times its launches per op call. ``other`` is divided by the calls
+    made, since its launches per call are not fixed by this script."""
     prof = device_profile(lambda: [fn() for _ in range(n)])
-    out: dict = {}
-    for name, (ms, _) in prof["by_name"].items():
+    out, counts = {}, {}
+    for name, (ms, count) in prof["by_name"].items():
         m = re.search(r"(swin_\w+)", name)
         key = m.group(1) if m else "other"
-        out[key] = out.get(key, 0.0) + ms / n
-    return out
+        out[key] = out.get(key, 0.0) + ms
+        counts[key] = counts.get(key, 0) + count
+    log(f"      traced {n} calls, launches recorded: {counts} (expected "
+        + ", ".join(f"{k} {n * LAUNCHES_PER_CALL.get(k, 1)}"
+                    for k in counts if k != "other") + ")")
+    return {k: (v / n if k == "other"
+                else v / counts[k] * LAUNCHES_PER_CALL.get(k, 1))
+            for k, v in out.items()}
 
 
 def split_line(split: dict, gemm_key: str, gemm_flops: float) -> str:
@@ -821,7 +848,7 @@ def synthetic_scene(h, w, seed):
 
 
 # cuDNN / cuBLAS kernel names: the convolutions (and GEMMs) of a trace
-CONV_NAMES = ("xmma", "cudnn", "conv", "gemm", "cutlass")
+CONV_NAMES = ("xmma", "cudnn", "conv", "gemm", "cutlass", "nvjet")
 
 
 def device_profile(fn, attempts: int = 3, per_launch: bool = False) -> dict:
@@ -1145,6 +1172,8 @@ def train_breakdown(trainer, name: str = "SwinUnet") -> dict:
     steps = device_profile(lambda: [train_step(state, loss_fn, b.image, b.mask)
                                     for b in batches[1:5]])
     load = device_profile(lambda: loader.get_chunk(0))
+    k5_launches = sum(n for k, (_, n) in load["by_name"].items()
+                      if "augment_kernel" in k)
     kernels = ("K1", "K2", "K3", "K4")
     per_step = {k: steps[k] / 4 for k in ("kernel_ms", "conv_ms") + kernels}
     cycle_ms = load["kernel_ms"] + STEPS_PER_EPOCH * per_step["kernel_ms"]
@@ -1161,7 +1190,8 @@ def train_breakdown(trainer, name: str = "SwinUnet") -> dict:
         f"GEMMs {per_step['conv_ms']:.3f} ms = {shares['conv'] * 100:.1f}%"
         f"{mine}")
     log(f"  chunk load + augmentation traced: kernels {load['kernel_ms']:.3f}"
-        f" ms (K5 {load['K5']:.3f} ms) over a {load['span_ms']:.3f} ms span,"
+        f" ms (K5 {load['K5']:.3f} ms in {k5_launches} launches) over a "
+        f"{load['span_ms']:.3f} ms span,"
         f" device idle {load['idle_share'] * 100:.1f}%; K5 = "
         f"{shares['K5_of_chunk_cycle'] * 100:.2f}% of a chunk cycle's kernel"
         f" time")
@@ -1175,7 +1205,7 @@ def train_breakdown(trainer, name: str = "SwinUnet") -> dict:
                 **{f"{k}_ms_per_step": per_step[k] for k in kernels},
                 chunk_load_kernel_ms=load["kernel_ms"],
                 chunk_load_span_ms=load["span_ms"], K5_ms=load["K5"],
-                shares=shares,
+                K5_launches_traced=k5_launches, shares=shares,
                 top=[dict(name=k[:90], ms_per_step=t / 4, count=n // 4)
                      for k, (t, n) in top])
 
@@ -1590,6 +1620,329 @@ def unet_correctness(result: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# -- SegFormer: SegformerMod (MiT-B3) at full width ----------------------------
+SEGFORMER_PARAMETERS = 47_257_600  # 16 classes: the JAX model's count too
+# bf16 labels vs f32 labels at random initial weights: the JAX package's
+# own bf16 forward agrees with its f32 one on 98.50% of the pixels there
+# (tests/test_torch_segformer.py, on the CPU), so a point below that
+MIN_AGREEMENT = 0.975
+
+
+def segformer_scene(result: dict, scene) -> None:
+    """Full-width SegformerMod (random weights, seed 0, bf16) segments the
+    full-size scene at the other scene phases' geometry; one forward is
+    timed and traced. The JAX SegFormer reaches no Pallas kernel, so no
+    hand-written kernel runs on this path."""
+    from cvcs_tpu_torch.infer import InferenceConfig, SceneSegmenter
+    from cvcs_tpu_torch.models import build_model
+    from cvcs_tpu_torch.train.state import param_count
+
+    cfg = InferenceConfig(patch_size=224, border_correction=256,
+                          batch_tiles=128, num_classes=16)
+    model, _ = build_model("SegformerMod", NC, seed=0, dtype=torch.bfloat16)
+    n_params = param_count(model)
+    seg = SceneSegmenter(model, cfg)
+    seg.predict_scene(scene[:1792, :2240])          # warm-up, not counted
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    labels = seg.predict_scene(scene)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    lab = labels.cpu().numpy()
+    classes = np.unique(lab)
+    log(f"  SegformerMod ({n_params:,} parameters, expected "
+        f"{SEGFORMER_PARAMETERS:,}) predict_scene 6800x7200x3 bf16: labels "
+        f"{lab.shape} {lab.dtype}, {len(classes)} classes, 960 tiles in "
+        f"{secs:.2f} s = {960 / secs:.1f} tiles/s; hand-written kernel "
+        f"launches {kernel_counts()} (none on this path)")
+    assert n_params == SEGFORMER_PARAMETERS, n_params
+    assert lab.shape == (6720, 7168) and lab.dtype == np.uint8
+    assert classes.max() < NC
+    assert not any(kernel_counts().values())
+    result["segformer_scene"] = dict(
+        parameters=n_params, tiles_per_s=960 / secs, seconds=secs,
+        forward=forward_breakdown(model, "SegformerMod"))
+    del model, seg, labels
+    torch.cuda.empty_cache()
+
+
+def segformer_train_path(result: dict) -> None:
+    """SegformerMod through ``cli.train``'s ``main`` with the train cell's
+    geometry and cuts and ``augmentation: fused`` (K5 once per chunk),
+    resumed from checkpoint1 through ``build_trainer`` (what ``main``
+    runs); ``cli.evaluate`` on the checkpoint the resumed run wrote, whose
+    restored weights must equal the trainer's and whose metrics must
+    match the trainer's own evaluation of the same state; the breakdown
+    of a step; then one epoch through ``build_fused_ce`` (K3 per step and
+    validation batch, K4 per step, K5 per chunk)."""
+    import yaml
+
+    from cvcs_tpu_torch.cli import common
+    from cvcs_tpu_torch.cli import evaluate as evaluate_cli
+    from cvcs_tpu_torch.cli import train as train_cli
+    from cvcs_tpu_torch.ops import fused_ce
+    from cvcs_tpu_torch.train.loop import Trainer
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg = dict(
+            train=synthetic_dataset(tmp / "train", 2, seed=20),
+            validation=synthetic_dataset(tmp / "val", 1, seed=30),
+            checkpoint_directory=str(tmp / "ckpt"), device="gpu",
+            net="SegformerMod", epochs=TRAIN_EPOCHS, chunk_size=2,
+            validation_chunk_size=1, patch_size=224, batch_size=B_TRAIN,
+            loss="wCEL", opt="SGD2", ignore_background=True,
+            random_shift=True, augmentation="fused", freq=1,
+            precision_evaluation_freq=1, num_classes=15, verbose=True,
+            precision="bf16", seed=0, metrics_log=str(tmp / "metrics.jsonl"))
+        path = tmp / "train.yaml"
+        path.write_text(yaml.safe_dump(cfg))
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = train_cli.main(["train", str(path)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = kernel_counts()
+        assert rc == 0, rc
+        steps = TRAIN_EPOCHS * STEPS_PER_EPOCH
+        metrics = [json.loads(x) for x in
+                   (tmp / "metrics.jsonl").read_text().splitlines()]
+        meta = json.loads((tmp / "ckpt" / f"checkpoint{TRAIN_EPOCHS}"
+                           / "meta.json").read_text())
+        losses = meta["training_loss_values"]
+        log(f"  cli.train SegformerMod bf16, {TRAIN_EPOCHS} epochs x "
+            f"{STEPS_PER_EPOCH} steps in {secs:.2f} s (model build, class "
+            f"weights, validation and evaluation included); epoch 2: "
+            f"{metrics[1]['patches_per_s']:.1f} patches/s over "
+            f"{metrics[1]['epoch_s']:.2f} s; losses {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}; validation losses "
+            f"{[round(v, 4) for v in meta['validation_loss_values'][::8]]}; "
+            f"launches {counts} (expected K5 {TRAIN_EPOCHS}, one per chunk, "
+            f"and no other)")
+        assert counts == dict(K1=0, K2=0, K3=0, K4=0, K5=TRAIN_EPOCHS)
+        assert len(losses) == steps and np.isfinite(losses).all()
+        assert np.isfinite(meta["validation_loss_values"]).all()
+        assert len(meta["conf_flat"]) == TRAIN_EPOCHS
+        out.update(launches=dict(K5=counts["K5"]), seconds=secs,
+                   patches_per_s_epoch2=metrics[1]["patches_per_s"],
+                   epoch2_s=metrics[1]["epoch_s"], first_loss=losses[0],
+                   last_loss=losses[-1])
+
+        cfg.update(load_checkpoint=str(tmp / "ckpt" / "checkpoint1"),
+                   metrics_log=str(tmp / "resume.jsonl"))
+        trainer = train_cli.build_trainer(cfg)
+        trainer.train()
+        hist = trainer.training_loss_values
+        log(f"  resumed from checkpoint1: {len(hist)} training losses, the "
+            f"first {STEPS_PER_EPOCH} equal to the first run's: "
+            f"{hist[:STEPS_PER_EPOCH] == losses[:STEPS_PER_EPOCH]}; epoch 2 "
+            f"again {hist[STEPS_PER_EPOCH]:.4f} -> {hist[-1]:.4f}; last "
+            f"evaluation mIoU {trainer.last_metrics['mIoU']:.4f}")
+        assert len(hist) == steps and np.isfinite(hist).all()
+        assert hist[:STEPS_PER_EPOCH] == losses[:STEPS_PER_EPOCH]
+
+        # cli.evaluate on the checkpoint the resumed run wrote
+        eval_cfg = dict(dataset=cfg["validation"], net="SegformerMod",
+                        patch_size=224, num_classes=15, precision="bf16",
+                        ignore_background=True, batch_size=8,
+                        load_checkpoint=str(tmp / "ckpt"
+                                            / f"checkpoint{TRAIN_EPOCHS}"))
+        restored, _, _ = common.build_apply(
+            eval_cfg, common.device_context(eval_cfg))
+        want = trainer.state.model.state_dict()
+        differ = [k for k, v in restored.state_dict().items()
+                  if not torch.equal(v, want[k])]
+        del restored
+        reset_counts()
+        t0 = time.perf_counter()
+        ev = evaluate_cli.evaluate(eval_cfg)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        gap = max(abs(ev[k] - trainer.last_metrics[k])
+                  for k in ("mIoU", "oa_score", "dice_score"))
+        log(f"  cli.evaluate {eval_cfg['load_checkpoint'][-11:]} on the "
+            f"validation scene (80 patches) in {eval_s:.2f} s: restored "
+            f"weights equal to the trainer's in {len(want) - len(differ)} of "
+            f"{len(want)} tensors; mIoU {ev['mIoU']:.6f}, OA "
+            f"{ev['oa_score']:.6f} vs the trainer's evaluation "
+            f"{trainer.last_metrics['mIoU']:.6f} / "
+            f"{trainer.last_metrics['oa_score']:.6f} (largest gap {gap:.2e}, "
+            f"limit 1e-3); launches {kernel_counts()}")
+        assert not differ, differ[:5]
+        assert gap <= 1e-3, gap
+        assert not any(kernel_counts().values())
+        out["evaluate"] = dict(seconds=eval_s, mIoU=ev["mIoU"],
+                               oa=ev["oa_score"], gap=gap)
+        result["segformer_trained"] = {k: v.detach().cpu().clone()
+                                       for k, v in want.items()}
+        out["breakdown"] = train_breakdown(trainer, "SegformerMod")
+        del trainer
+
+        base = train_cli.build_trainer(dict(
+            cfg, load_checkpoint=None, epochs=1,
+            checkpoint_directory=str(tmp / "fused"),
+            metrics_log=str(tmp / "fused.jsonl")))
+        weights = base.train_loader.class_weights(NC, True)
+        trainer = Trainer(base.spec, base.state,
+                          fused_ce.build_fused_ce(weights,
+                                                  ignore_background=True),
+                          base.train_loader, base.val_loader, base.config)
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = kernel_counts()
+        fused_losses = trainer.training_loss_values
+        want_counts = dict(K1=0, K2=0, K3=STEPS_PER_EPOCH + VAL_BATCHES,
+                           K4=STEPS_PER_EPOCH, K5=1)
+        log(f"  Trainer(loss_fn=build_fused_ce) SegformerMod bf16, 1 epoch "
+            f"in {secs:.2f} s: losses {fused_losses[0]:.4f} -> "
+            f"{fused_losses[-1]:.4f}; launches {counts} (expected "
+            f"{want_counts}: K3 {STEPS_PER_EPOCH} steps + {VAL_BATCHES} "
+            "validation batches, K4 a step, K5 a chunk)")
+        assert counts == want_counts, counts
+        assert len(fused_losses) == STEPS_PER_EPOCH
+        assert np.isfinite(fused_losses).all()
+        out["launches"].update(K3=counts["K3"], K4=counts["K4"],
+                               K5_fused_epoch=counts["K5"])
+        out.update(fused_epoch_s=secs,
+                   fused_losses=[fused_losses[0], fused_losses[-1]])
+        del trainer, base
+    result["segformer_train"] = out
+    torch.cuda.empty_cache()
+
+
+def first_updates(state) -> dict:
+    """The first SGD step's update of each parameter, lr * (grad + wd *
+    p), in f64: what the step adds before it is rounded into the f32
+    parameter. (A SegFormer update of 1e-7 on a weight near 0.3 is a few
+    ulps of it, so the stored parameters cannot resolve 5e-2 of it.)"""
+    group = state.optimizer.opt.param_groups[0]
+    lr, wd = group["lr"], group["weight_decay"]
+    return {k: lr * (p.grad.double() + wd * p.detach().double())
+            for k, p in state.model.named_parameters()}
+
+
+def segformer_correctness(result: dict) -> None:
+    """One f32 SegformerMod step through K3/K4 vs one through the eager
+    wCEL from the same weights, batch and dropout seed (the U-Net rule:
+    loss 1e-5 relative, each parameter's update within 5e-2 of the eager
+    one's, taken before the update is rounded into the parameters,
+    ``first_updates``; a loss passing half its gradient must fail); two bf16 steps
+    from one seed give bit-equal losses and another dropout seed another
+    loss; a bf16 forward's logits are within the bf16 parity tolerance
+    (``TOL``, x max(1, |f32|max)) of an f32 forward's and its labels agree
+    on >= ``MIN_AGREEMENT`` of the pixels, at the random initial weights
+    (the share with the weights the train phase reached is printed: after
+    32 steps on random labels the loss is still near ln 16, the logits
+    near a tie, so bf16 rounding flips more labels there)."""
+    from cvcs_tpu_torch.data.reader import class_weights
+    from cvcs_tpu_torch.models import build_model
+    from cvcs_tpu_torch.ops import fused_ce, losses
+    from cvcs_tpu_torch.train.optim import build_optimizer
+    from cvcs_tpu_torch.train.state import TrainState
+    from cvcs_tpu_torch.train.step import train_step
+
+    g = torch.Generator().manual_seed(7)
+    image = torch.randint(0, 256, (B_TRAIN, 224, 224, 3), generator=g,
+                          dtype=torch.uint8).cuda()
+    blocks = torch.randint(0, NC, (B_TRAIN, 7, 7), generator=g)
+    blocks[0, 0, :3] = 255                       # void
+    mask = blocks.repeat_interleave(32, 1).repeat_interleave(32, 2)
+    weights = class_weights(np.bincount(mask[mask < NC].numpy(),
+                                        minlength=NC), True)
+    mask = mask.to(torch.int32).cuda()
+    fused = fused_ce.build_fused_ce(weights, ignore_background=True)
+    eager = losses.build_loss("wCEL", weights=weights, ignore_background=True,
+                              device="cuda")
+
+    def one_step(loss_fn, dtype, dropout_seed=0xD0):
+        model, _ = build_model("SegformerMod", NC, seed=0, dtype=dtype)
+        opt = build_optimizer("SGD2", model.parameters())
+        opt.set_epoch(0)
+        state = TrainState(model, opt, dropout_seed=dropout_seed)
+        loss = float(train_step(state, loss_fn, image, mask))
+        return loss, first_updates(state), model.state_dict()
+
+    def half_fused(logits, labels):        # same loss, half its gradient
+        loss = fused(logits, labels)
+        return 0.5 * loss + 0.5 * loss.detach()
+
+    before = kernel_counts()
+    f_loss, f_upd, f_sd = one_step(fused, torch.float32)
+    after = kernel_counts()
+    assert (after["K3"] - before["K3"], after["K4"] - before["K4"]) == (1, 1)
+    e_loss, e_upd, e_sd = one_step(eager, torch.float32)
+    _, e2_upd, e2_sd = one_step(eager, torch.float32)
+    h_loss, h_upd, _ = one_step(half_fused, torch.float32)
+    rel = abs(f_loss - e_loss) / abs(e_loss)
+    names, zero = list(e_upd), {k: 0.0 for k in e_upd}
+    upd, upd_max = update_err(f_upd, e_upd, zero, names)
+    upd_half, _ = update_err(h_upd, e_upd, zero, names)
+    upd_again, _ = update_err(e2_upd, e_upd, zero, names)
+    # the same comparisons read from the stored f32 parameters
+    start = build_model("SegformerMod", NC, seed=0, dtype=torch.float32)[0]
+    start = start.state_dict()
+    stored = update_err(f_sd, e_sd, start, names)[0]
+    stored_again = update_err(e2_sd, e_sd, start, names)[0]
+    log(f"  f32 SegformerMod step, fused K3/K4 vs eager wCEL (same dropout "
+        f"seed): loss {f_loss:.6f} vs {e_loss:.6f} (relative {rel:.2e}, tol "
+        f"1e-5); largest parameter update {upd_max:.3e}; update error "
+        f"{upd:.2e} (tol {TOL_UPDATE:.0e}; a second eager step "
+        f"{upd_again:.2e}); with half the gradient {upd_half:.2e} (must "
+        f"fail). Read from the stored f32 parameters instead: fused "
+        f"{stored:.2e}, a second eager step {stored_again:.2e}")
+    assert rel <= 1e-5 and upd <= TOL_UPDATE
+    assert h_loss == f_loss and upd_half > TOL_UPDATE
+    del f_upd, e_upd, e2_upd, h_upd, f_sd, e_sd, e2_sd, start
+
+    seeded = [one_step(eager, torch.bfloat16, s)[0] for s in (0xD0, 0xD0,
+                                                             0xD1)]
+    log(f"  bf16 steps, dropout seed 0xD0 twice and 0xD1: losses "
+        f"{seeded[0]!r}, {seeded[1]!r}, {seeded[2]!r} (the first two must be "
+        "bit-equal, the third not)")
+    assert seeded[0] == seeded[1] and seeded[2] != seeded[0]
+
+    x = torch.from_numpy(synthetic_scene(1792, 2240, seed=30)[:896, :1120]
+                         .reshape(4, 224, 5, 224, 3).transpose(0, 2, 1, 3, 4)
+                         .reshape(20, 224, 224, 3).copy()).cuda().float()
+    agreement, logit_err = {}, {}
+    for which in ("initial", "trained"):
+        models = {}
+        for dt in (torch.float32, torch.bfloat16):
+            models[dt], _ = build_model("SegformerMod", NC, seed=0, dtype=dt)
+            if which == "trained":
+                models[dt].load_state_dict(result["segformer_trained"])
+        with torch.inference_mode():
+            out32 = models[torch.float32](x)
+            out16 = models[torch.bfloat16](x)
+        agreement[which] = float((out32.argmax(-1) == out16.argmax(-1))
+                                 .float().mean())
+        scale = max(1.0, float(out32.abs().max()))
+        logit_err[which] = float((out16 - out32).abs().max()) / scale
+        del models, out32, out16
+    log(f"  bf16 vs f32 SegformerMod on 20 patches of the validation scene: "
+        f"labels agree on {agreement['initial'] * 100:.3f}% with the random "
+        f"initial weights (limit {MIN_AGREEMENT * 100:.1f}%), "
+        f"{agreement['trained'] * 100:.3f}% with the trained ones; max logit "
+        f"error / max(1, |f32|max) {logit_err['initial']:.2e} and "
+        f"{logit_err['trained']:.2e} (limit {TOL[torch.bfloat16]:.0e})")
+    assert agreement["initial"] >= MIN_AGREEMENT
+    assert max(logit_err.values()) <= TOL[torch.bfloat16]
+    result["segformer_correctness"] = dict(
+        f32_fused_vs_eager_loss_rel=rel, f32_fused_vs_eager_update_err=upd,
+        largest_update=upd_max, half_gradient_update_err=upd_half,
+        eager_again_update_err=upd_again,
+        stored_param_update_err=dict(fused=stored, eager_again=stored_again),
+        seeded_losses=seeded, bf16_label_agreement=agreement,
+        bf16_logit_err=logit_err)
+    del result["segformer_trained"]
+    torch.cuda.empty_cache()
+
+
 def kernel_entry(meta, launches, err, times, library, per, **extra) -> dict:
     t = times["total"] if "total" in times else times
     return dict(
@@ -1636,15 +1989,18 @@ def main() -> int:
     scene = main_path(result)
     bf16_forward_check(result)
     unet_scene(result, scene)
+    segformer_scene(result, scene)
     del scene
 
     log("[5] training path")
     train_path(result)
     unet_train_path(result)
+    segformer_train_path(result)
 
     log("[6] training correctness")
     train_correctness(result)
     unet_correctness(result)
+    segformer_correctness(result)
 
     log("[7] times (CUDA events, mean of 10 after 2 warm-up)")
     k1_times = time_k1()
@@ -1656,6 +2012,11 @@ def main() -> int:
 
     tl = result["train"]["launches"]
     ul = result["unet_train"]["launches"]
+    sl = result["segformer_train"]["launches"]
+    k5_paths = dict(swin_train=tl["K5"], segformer_train=sl["K5"],
+                    segformer_fused_epoch=sl["K5_fused_epoch"])
+    ce_paths = {k: dict(unet_fused_epoch=ul[k], segformer_fused_epoch=sl[k])
+                for k in ("K3", "K4")}
     line = {"kernels": [
         kernel_entry(swin_attn.KERNEL, result["launches"], k1_err, k1_times,
                      "composite: F.layer_norm + F.linear + "
@@ -1671,26 +2032,31 @@ def main() -> int:
                      "F.linear + F.scaled_dot_product_attention + F.linear",
                      f"one SwinUnet train step at p 224, batch {B_TRAIN} "
                      "(12 launches)", max_scaled_err=k2_scaled),
-        kernel_entry(augment.KERNEL, tl["K5"], k5_err, k5_times,
+        kernel_entry(augment.KERNEL, sum(k5_paths.values()), k5_err, k5_times,
                      "composite: torch.flip / torch.rot90 per draw group, "
                      "then the contrast and normalisation ops",
                      f"one training chunk of {B_CHUNK} patches 224x224x3 "
-                     "(1 launch)", old_ms=k5_times["old_ms"],
+                     "(1 launch)", launches_by_path=k5_paths,
+                     old_ms=k5_times["old_ms"],
                      device_ms=k5_times["device_ms"],
                      old_device_ms=k5_times["old_device_ms"],
                      split=k5_times["split"], preset=k5_times["preset"],
                      gid15_chunk=k5_times["gid15_chunk"]),
-        kernel_entry(fused_ce.KERNEL, ul["K3"], ce_err["k3_err"], k3_times,
+        kernel_entry(fused_ce.KERNEL, sum(ce_paths["K3"].values()),
+                     ce_err["k3_err"], k3_times,
                      "F.cross_entropy(NCHW logits, weight, ignore_index=0) "
                      "forward",
                      f"one Unetv2 train step at p 224, batch {B_TRAIN} (1 "
                      "launch), and one per validation batch",
+                     launches_by_path=ce_paths["K3"],
                      device_ms=k3_times["device_ms"]),
-        kernel_entry(fused_ce.BWD_KERNEL, ul["K4"], ce_err["k4_err"],
+        kernel_entry(fused_ce.BWD_KERNEL, sum(ce_paths["K4"].values()),
+                     ce_err["k4_err"],
                      k4_times, "autograd backward of F.cross_entropy(NCHW "
                      "logits, weight, ignore_index=0)",
                      f"one Unetv2 train step at p 224, batch {B_TRAIN} (1 "
-                     "launch)", max_scaled_err=ce_err["k4_rel"],
+                     "launch)", launches_by_path=ce_paths["K4"],
+                     max_scaled_err=ce_err["k4_rel"],
                      device_ms=k4_times["device_ms"],
                      old_ms=k4_times["old_ms"],
                      old_device_ms=k4_times["old_device_ms"],
@@ -1707,6 +2073,9 @@ def main() -> int:
         "unet_forward": result["unet_forward"],
         "unet_train": result["unet_train"],
         "unet_correctness": result["unet_correctness"],
+        "segformer_scene": result["segformer_scene"],
+        "segformer_train": result["segformer_train"],
+        "segformer_correctness": result["segformer_correctness"],
         "seconds": time.perf_counter() - t_start}
     log(smi)
     log(json.dumps(line))

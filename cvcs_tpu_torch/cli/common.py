@@ -13,6 +13,7 @@ from cvcs_tpu_torch.core.device import resolve_device
 from cvcs_tpu_torch.core.precision import policy_from_config
 from cvcs_tpu_torch.infer.engine import labels_to_host
 from cvcs_tpu_torch.models import build_model
+from cvcs_tpu_torch.train.checkpoint import STATE, STATE_KEYS
 
 # config keys of paths the port does not run yet -> the ROADMAP item
 UNPORTED_KEYS = {
@@ -30,6 +31,10 @@ def reject_unported(config: dict) -> None:
     for key, why in UNPORTED_KEYS.items():
         if config.get(key):
             raise NotImplementedError(f"config key {key!r}: {why}")
+    if config.get("net") == "Ensemble":
+        raise NotImplementedError(
+            "net 'Ensemble' is not yet ported to cvcs_tpu_torch; see "
+            "ROADMAP.md Queue 1 item 10 (Ensemble)")
 
 
 def device_context(config: dict) -> torch.device:
@@ -70,17 +75,24 @@ def build_net(config: dict, device=None, seed: int = 0):
 
 def restore_variables(config: dict, model):
     """Overwrite the model's weights from ``config['load_checkpoint']``:
-    a port state dict saved with ``torch.save`` (``.pt``), or an ``.npz``
-    of JAX variables (see :mod:`cvcs_tpu_torch.weights`)."""
+    a train checkpoint of the port (a ``checkpointN/`` directory, or its
+    ``state.pt``), a port state dict saved with ``torch.save`` (``.pt``),
+    or an ``.npz`` of JAX variables (see :mod:`cvcs_tpu_torch.weights`).
+    The JAX package's Orbax directories (holding ``state/``) are refused."""
     ckpt = config.get("load_checkpoint")
     if not ckpt:
         return model
     path = Path(ckpt)
     if path.is_dir():
-        raise NotImplementedError(
-            f"{ckpt} is an Orbax checkpoint directory; loading those is not "
-            "yet ported (ROADMAP.md Queue 1 item 6) — export an .npz of the "
-            "variables instead")
+        if not (path / STATE).is_file():
+            if (path / "state").is_dir():
+                raise NotImplementedError(
+                    f"{ckpt} is an Orbax checkpoint directory of the JAX "
+                    "package; loading those is not yet ported (ROADMAP.md "
+                    "Queue 1 item 6b) — export an .npz of the variables "
+                    "instead")
+            raise FileNotFoundError(f"no {STATE} under {ckpt}")
+        path = path / STATE
     if path.suffix == ".npz":
         from cvcs_tpu_torch.weights import load_jax_variables, unflatten_npz
 
@@ -93,13 +105,15 @@ def restore_variables(config: dict, model):
             raise NotImplementedError(
                 f"{ckpt} is not a cvcs_tpu_torch state dict; reference torch "
                 "checkpoints are not yet imported (ROADMAP.md Queue 1 "
-                "item 6)") from err
+                "item 6b)") from err
+        if isinstance(sd, dict) and set(sd) == STATE_KEYS:
+            sd = sd["model"]
         if not (isinstance(sd, dict)
                 and set(sd) == set(model.state_dict())):
             raise NotImplementedError(
                 f"{ckpt} does not hold this model's state dict; reference "
                 "torch checkpoints are not yet imported (ROADMAP.md Queue 1 "
-                "item 6)")
+                "item 6b)")
         model.load_state_dict(sd, strict=True)
     print(f"Loaded checkpoint {ckpt}", flush=True)
     return model

@@ -25,6 +25,7 @@ from cvcs_tpu_torch.train.checkpoint import latest_checkpoint
 from cvcs_tpu_torch.train.loop import TrainConfig, Trainer
 from cvcs_tpu_torch.train.optim import build_optimizer
 from cvcs_tpu_torch.train.state import TrainState, param_count
+from cvcs_tpu_torch.utils.tables import get_table_cls
 
 # train config keys of paths the port does not run yet -> the ROADMAP item
 UNPORTED_TRAIN_KEYS = {
@@ -35,7 +36,7 @@ UNPORTED_TRAIN_KEYS = {
     "debug_plot": "debug plots are not yet ported (ROADMAP.md Queue 1 "
                   "item 13)",
     "async_checkpoints": "asynchronous checkpoints are not yet ported "
-                         "(ROADMAP.md Queue 1 item 6)",
+                         "(ROADMAP.md Queue 1 item 6b)",
     "profile_dir": "profiling is not yet ported (ROADMAP.md Queue 1 "
                    "item 13)",
 }
@@ -90,13 +91,15 @@ def build_trainer(config: dict) -> Trainer:
     optimizer = build_optimizer(config["opt"], model.parameters(),
                                 epochs=config["epochs"])
     state = TrainState(model, optimizer)
-    for name, value in (
-            ("parameters", param_count(model)),
-            ("Patch size", loader_train.patch_size),
-            ("Tpe", loader_train.tpi),
-            ("Training patches", len(loader_train.idxs) * loader_train.tpi),
-            ("Validation patches", len(loader_val.idxs) * loader_val.tpi)):
-        print(f"{name:>20} : {value}", flush=True)
+    t = get_table_cls()(["Name", "Value"])
+    t.add_row(["parameters", param_count(model)])
+    t.add_row(["Patch size", loader_train.patch_size])
+    t.add_row(["Tpe", loader_train.tpi])
+    t.add_row(["Training patches",
+               len(loader_train.idxs) * loader_train.tpi])
+    t.add_row(["Validation patches",
+               len(loader_val.idxs) * loader_val.tpi])
+    print(t, flush=True)
 
     weights = None
     if config["loss"] == "wCEL":
@@ -104,8 +107,10 @@ def build_trainer(config: dict) -> Trainer:
               flush=True)
         weights = loader_train.class_weights(
             num_classes, bool(config.get("ignore_background")))
+        wt = get_table_cls()(["Class", "Weight"])
         for i, w in enumerate(weights):
-            print(f"{LABELS.get(i, str(i)):>22} : {float(w)}", flush=True)
+            wt.add_row([LABELS.get(i, str(i)), float(w)])
+        print(wt, flush=True)
     loss_fn = build_loss(config["loss"], weights=weights,
                          ignore_background=bool(
                              config.get("ignore_background")),
@@ -125,7 +130,8 @@ def build_trainer(config: dict) -> Trainer:
         eval_downscale=int(config.get("eval_downscale", 1)),
         keep_checkpoints=(int(config["keep_checkpoints"])
                           if config.get("keep_checkpoints") else None),
-        grad_accum=int(config.get("grad_accum", 1)))
+        grad_accum=int(config.get("grad_accum", 1)),
+        seed=seed)
     if (train_cfg.eval_downscale > 1
             and int(config["patch_size"]) % train_cfg.eval_downscale):
         raise ValueError(f"eval_downscale={train_cfg.eval_downscale} must "

@@ -1,5 +1,5 @@
 """YAML config loading and key validation (port of the training,
-inference and serve parts of ``cvcs_tpu/config/loader.py``)."""
+evaluation, inference and serve parts of ``cvcs_tpu/config/loader.py``)."""
 
 from __future__ import annotations
 
@@ -19,6 +19,12 @@ TRAIN_KEYS = {
     "steps_per_call", "metrics_log", "bn_exact_stats",
     "async_checkpoints", "eval_downscale", "keep_checkpoints", "remat",
     "grad_accum",
+}
+EVAL_KEYS = {
+    "dataset", "net", "load_checkpoint", "patch_size", "load_context",
+    "load_color_mask", "num_classes", "ignore_background", "verbose",
+    "confusion_matrix", "priors", "images", "device", "ensemble_config",
+    "precision", "batch_size", "in_channels", "mesh",
 }
 INFER_KEYS = {
     "dataset", "net", "load_checkpoint", "patch_size", "border_correction",

@@ -41,13 +41,20 @@ class AugmentConfig:
     mode: str = "reference"   # "reference" | "fused"
 
 
+def plane_mean(plane: torch.Tensor) -> torch.Tensor:
+    """(B,) means of (B, H, W) f32, taken as JAX's ``jnp.mean`` takes
+    them: the sum times the f32 reciprocal of H * W, on every device
+    (torch's mean divides on the CPU, which rounds differently)."""
+    return plane.sum(dim=(1, 2)) * (1.0 / (plane.shape[1] * plane.shape[2]))
+
+
 def adjust_contrast(image: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
     """torchvision ``adjust_contrast`` on (B, H, W, C) f32 in [0, 255]:
-    blend with the mean of the floored ITU-R 601 grayscale of the first
-    three bands, clip, floor."""
+    blend with the mean (:func:`plane_mean`) of the floored ITU-R 601
+    grayscale of the first three bands, clip, floor."""
     gray = (0.2989 * image[..., 0] + 0.587 * image[..., 1]
             + 0.114 * image[..., 2])
-    mean = torch.floor(gray).mean(dim=(1, 2)).view(-1, 1, 1, 1)
+    mean = plane_mean(torch.floor(gray)).view(-1, 1, 1, 1)
     f = factor.view(-1, 1, 1, 1)
     return torch.floor(torch.clamp(f * image + (1.0 - f) * mean, 0.0, 255.0))
 

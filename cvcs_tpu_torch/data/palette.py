@@ -15,6 +15,12 @@ LABELS = {
     12: "artificial grassland", 13: "river", 14: "lake", 15: "pond",
 }
 
+# the confusion plot's axis labels
+SHORT_LABELS = [
+    "B", "IL", "UL", "RL", "TL", "PF", "IC", "DC",
+    "GP", "AF", "SL", "NG", "AG", "R", "L", "P",
+]
+
 # label -> RGB
 PALETTE = np.array(
     [

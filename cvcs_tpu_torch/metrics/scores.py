@@ -6,7 +6,9 @@
   2tp/(2tp+fp+fn);
 * a class is excluded (score 0, left out of the macro mean) when
   precision: tp+fp == 0; recall, IoU and F1: tp+fn == 0;
-* overall accuracy = trace / sum.
+* overall accuracy = trace / sum;
+* :func:`print_metrics` renders the reference's two tables (scores, then
+  per-class IoU) and returns the metric dict.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Callable
 import numpy as np
 
 from cvcs_tpu_torch.data.palette import LABELS
+from cvcs_tpu_torch.utils.tables import get_table_cls
 
 
 def _class_scores(conf: np.ndarray,
@@ -83,16 +86,23 @@ def compute_metrics(conf) -> dict:
     }
 
 
-def print_metrics(conf) -> dict:
-    """Print the scores and per-class IoU; return the metric dict without
-    the excluded list."""
+def print_metrics(conf, silent: bool = False) -> dict:
+    """Print the reference's score table and per-class IoU table (unless
+    ``silent``); return the metric dict without the excluded list."""
+    table = get_table_cls()
     m = compute_metrics(conf)
+    t = table(["Metric", "Score"])
+    t.align = "r"
     for name, key in (("mIoU", "mIoU"), ("mPrec", "precision_score"),
                       ("mRec", "recall_score"), ("Dice", "dice_score"),
                       ("OA", "oa_score")):
-        print(f"{name:>6} : {m[key]}")
-    print(f"Excluded classes (not in target): {m['excluded']}")
+        t.add_row([name, m[key]])
+    iou_table = table(["Class", "IoU"])
+    iou_table.align = "r"
     for i, score in enumerate(m["perclass_IoU"]):
-        print(f"{LABELS.get(i, str(i)):>22} : {score}")
-    print(flush=True)
+        iou_table.add_row([LABELS.get(i, str(i)), score])
+    if not silent:
+        print(t)
+        print(f"Excluded classes (not in target): {m['excluded']}")
+        print(iou_table, flush=True)
     return {k: v for k, v in m.items() if k != "excluded"}

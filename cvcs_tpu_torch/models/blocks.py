@@ -4,6 +4,8 @@ UNet ``DecodeBlock`` arithmetic (:162-188), ``UpscaleBlock`` (:143-159),
 ``center_crop`` (:231-242), with BatchNorm in eval and train mode
 (:35-102). The JAX ``ConvTranspose`` (:191-228) is ``nn.ConvTranspose2d``
 run by :func:`conv_transpose_nhwc` on the exporter's flipped kernel.
+flax's ``nn.Dropout`` is :class:`SeededDropout`, seeded per train step
+by :func:`seed_dropout`.
 
 Parameters live in ``nn.Conv2d`` / ``nn.LayerNorm`` / ``nn.BatchNorm2d``
 holders, so state-dict names are torch's; the arithmetic is written out
@@ -46,17 +48,20 @@ def conv_nhwc(x, conv: nn.Conv2d, padding="same_flax") -> torch.Tensor:
             y = F.pad(y, (left, right, top, bottom))
         padding = 0
     bias = None if conv.bias is None else conv.bias.to(dt)
-    y = F.conv2d(y, conv.weight.to(dt), bias, conv.stride, padding)
+    y = F.conv2d(y, conv.weight.to(dt), bias, conv.stride, padding, 1,
+                 conv.groups)
     return y.permute(0, 2, 3, 1)
 
 
-def conv_transpose_nhwc(x, conv: nn.ConvTranspose2d) -> torch.Tensor:
-    """Kernel = stride transposed conv (flax ``nn.ConvTranspose`` with the
-    exporter's flipped kernel) on an NHWC tensor in x.dtype."""
+def conv_transpose_nhwc(x, conv: nn.ConvTranspose2d,
+                        padding: int = 0) -> torch.Tensor:
+    """Transposed conv (flax ``nn.ConvTranspose`` with the exporter's
+    flipped kernel) on an NHWC tensor in x.dtype. ``padding`` is torch's:
+    flax's explicit padding k - 1 - p on each side."""
     dt = x.dtype
     bias = None if conv.bias is None else conv.bias.to(dt)
     y = F.conv_transpose2d(x.permute(0, 3, 1, 2), conv.weight.to(dt), bias,
-                           conv.stride)
+                           conv.stride, padding)
     return y.permute(0, 2, 3, 1)
 
 
@@ -123,6 +128,63 @@ def batch_norm_train(x, bn: nn.BatchNorm2d) -> torch.Tensor:
     xf, mean, var = batch_stats(x)
     update_running_stats(bn, mean, var, xf.numel() // xf.shape[-1])
     return _affine(xf, mean, var, bn.weight, bn.bias, bn.eps, x.dtype)
+
+
+class SeededDropout(nn.Module):
+    """flax ``nn.Dropout``: in training, keep each element with
+    probability 1 - rate and scale it by 1 / (1 - rate) (the keep
+    probability rounded to x.dtype, as JAX rounds a weak-typed scalar);
+    the identity in eval mode, which draws nothing.
+
+    The noise comes from the module's own ``torch.Generator`` on the
+    input's device, never the global RNG: :func:`seed_dropout` seeds it
+    from a (seed, step) pair before each train step. ``keep_mask`` (a
+    boolean tensor of the input's shape), when set, is used instead of a
+    draw, so tests can feed both frameworks one mask."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.keep_mask: torch.Tensor | None = None
+        self._seed: int | None = None
+        self._gen: torch.Generator | None = None
+
+    def reseed(self, seed: int) -> None:
+        self._seed, self._gen = seed, None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        if self.keep_mask is not None:
+            mask = self.keep_mask.to(x.device)
+        else:
+            if self._seed is None:
+                raise RuntimeError("dropout drawn before seed_dropout seeded "
+                                   "its generator")
+            if self._gen is None or self._gen.device != x.device:
+                self._gen = torch.Generator(device=x.device)
+                self._gen.manual_seed(self._seed)
+            mask = torch.rand(x.shape, generator=self._gen,
+                              device=x.device) < keep
+        return torch.where(mask, x / x.new_tensor(keep), x.new_zeros(()))
+
+
+def seed_dropout(model: nn.Module, seed: int, step: int = 0) -> None:
+    """Seed every :class:`SeededDropout` of ``model`` from ``(seed,
+    step)``, the port of the JAX step's ``fold_in(dropout_key, step)``:
+    each step's noise depends on the seed and the step only, so a resumed
+    run draws what the first run drew. Micro-batches of one step draw in
+    turn from the one seeded generator. The pair is hashed (splitmix64)
+    because the CPU generator keeps only a seed's low 32 bits."""
+    mask = (1 << 64) - 1
+    z = ((seed & 0xFFFFFFFF) << 32 | (step & 0xFFFFFFFF)) + 0x9E3779B97F4A7C15
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & mask
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & mask
+    mixed = z ^ (z >> 31)
+    for m in model.modules():
+        if isinstance(m, SeededDropout):
+            m.reseed(mixed)
 
 
 def max_pool_nhwc(x: torch.Tensor) -> torch.Tensor:

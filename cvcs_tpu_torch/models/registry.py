@@ -1,7 +1,7 @@
 """Model registry (port of ``cvcs_tpu/models/registry.py``): config names
--> model constructors, with the typed model protocol. The Swin and UNet
-families are ported; every other name of the JAX registry raises and
-names the ROADMAP item that will port it."""
+-> model constructors, with the typed model protocol. The Swin, UNet and
+SegFormer families are ported; every other name of the JAX registry
+raises and names the ROADMAP item that will port it."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import torch
 
 from cvcs_tpu_torch.core.device import resolve_device
 from cvcs_tpu_torch.models.blocks import init_weights
+from cvcs_tpu_torch.models.segformer import MIT_B0, MIT_B1, MIT_B3, SegFormer
 from cvcs_tpu_torch.models.swin import SwinUNet
 from cvcs_tpu_torch.models.unet import unet, unet_v2
 
@@ -22,6 +23,10 @@ class ModelSpec:
     build: Callable[..., torch.nn.Module]
     requires_context: bool = False
     returns_logits: bool = True
+    # reference checkpoints of this net were saved through a wrapper whose
+    # keys carry a "module."/"model." prefix (metadata: the reference
+    # checkpoint importer, ROADMAP.md Queue 1 item 6b, will read it)
+    wrapper: bool = False
     # full-convolution divisibility: input H/W must be multiples of this
     # for the forward to return an input-aligned label map
     stride_product: int = 1
@@ -48,6 +53,18 @@ MODEL_REGISTRY: dict[str, ModelSpec] = {
         "Unetv2S2D",
         lambda num_classes, **kw: unet_v2(num_classes, stem="s2d", **kw),
         stride_product=32),
+    "SegformerMod": ModelSpec(
+        "SegformerMod",
+        lambda num_classes, **kw: SegFormer(num_classes, MIT_B3, **kw),
+        wrapper=True, stride_product=4),
+    "SegformerB0": ModelSpec(
+        "SegformerB0",
+        lambda num_classes, **kw: SegFormer(num_classes, MIT_B0, **kw),
+        wrapper=True, stride_product=4),
+    "SegformerB1": ModelSpec(
+        "SegformerB1",
+        lambda num_classes, **kw: SegFormer(num_classes, MIT_B1, **kw),
+        wrapper=True, stride_product=4),
 }
 
 # the JAX registry's other names -> the ROADMAP item that ports them
@@ -57,9 +74,6 @@ NOT_YET_PORTED = {
     "MobileNet": "Queue 1 item 9 (DeepLab family)",
     "MobileNetGoogle": "Queue 1 item 9 (DeepLab family)",
     "MobileNetResnet18": "Queue 1 item 9 (DeepLab family)",
-    "SegformerMod": "Queue 1 item 8 (SegFormer)",
-    "SegformerB0": "Queue 1 item 8 (SegFormer)",
-    "SegformerB1": "Queue 1 item 8 (SegFormer)",
     "Ensemble": "Queue 1 item 10 (Ensemble and ViT)",
 }
 

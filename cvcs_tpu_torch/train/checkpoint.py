@@ -31,6 +31,7 @@ import torch
 
 _CKPT_RE = re.compile(r"^checkpoint(\d+)(_preempt)?$")
 STATE = "state.pt"
+STATE_KEYS = {"model", "optimizer", "step"}   # the entries of state.pt
 
 
 def _jsonable(x):
@@ -81,7 +82,7 @@ def load_checkpoint(path: str | Path, state):
         if (path / "state").is_dir():
             raise NotImplementedError(
                 f"{path} is an Orbax checkpoint of the JAX package; loading "
-                "those is not yet ported (ROADMAP.md Queue 1 item 6)")
+                "those is not yet ported (ROADMAP.md Queue 1 item 6b)")
         raise FileNotFoundError(f"no {STATE} under {path}")
     dev = next(state.model.parameters()).device
     saved = torch.load(path / STATE, map_location=dev, weights_only=True)

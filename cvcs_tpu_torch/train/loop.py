@@ -63,6 +63,7 @@ class TrainConfig:
     keep_checkpoints: int | None = None
     grad_accum: int = 1
     eval_downscale: int = 1
+    seed: int = 0                        # dropout seed: seed ^ 0xD0
 
 
 class Trainer:
@@ -79,6 +80,7 @@ class Trainer:
                              f"divisible by grad_accum={config.grad_accum}")
         self.spec = spec
         self.state = state
+        self.state.dropout_seed = config.seed ^ 0xD0
         self.loss_fn = loss_fn
         self.train_loader = train_loader
         self.val_loader = val_loader
@@ -88,6 +90,8 @@ class Trainer:
         self.validation_loss_values: list[float] = []
         self.conf_history: list[Any] = []
         self.last_epoch = 0
+        # the last periodic evaluation's metric dict (None before the first)
+        self.last_metrics: dict | None = None
         self._preempted = False
 
     def install_preemption_handler(self, signums=None) -> None:
@@ -215,7 +219,7 @@ class Trainer:
                 self.log(f"Evaluating precision after epoch {epoch + 1}")
                 host = self.evaluate(cfg.num_classes + 1,
                                      downscale=cfg.eval_downscale)
-                scores.print_metrics(host.total)
+                self.last_metrics = scores.print_metrics(host.total)
                 self.conf_history.append(host.total)
 
             saved = (epoch + 1) % cfg.freq == 0

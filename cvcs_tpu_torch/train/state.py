@@ -1,6 +1,7 @@
 """Train state (port of ``cvcs_tpu/train/state.py``): the model, whose
 parameters (f32) and BatchNorm running statistics it holds, the
-optimizer with its state, and the step count.
+optimizer with its state, the step count, and the dropout seed (the JAX
+trainer's ``dropout_key``, ``seed ^ 0xD0``).
 
 PyTorch updates in place, so the state is a mutable holder where the JAX
 package threads an immutable pytree through a donated jitted step."""
@@ -19,6 +20,7 @@ class TrainState:
     model: nn.Module
     optimizer: OptimizerBundle
     step: int = 0
+    dropout_seed: int = 0xD0              # seed ^ 0xD0, for seed 0
 
 
 def param_count(model: nn.Module) -> int:

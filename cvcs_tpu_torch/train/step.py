@@ -11,6 +11,12 @@ JAX package's semantics (``step.py:49-60,88-115``): BatchNorm normalises
 and updates its running statistics per micro-batch, the gradients of the
 micro losses are summed and then divided by N (one optimizer update), and
 the reported loss is the mean of the micro losses.
+
+Dropout (SegFormer's head) draws from generators seeded from
+``(state.dropout_seed, state.step)`` at the start of each train step, the
+port of the JAX step's ``fold_in(dropout_key, step)``; micro-batches draw
+in turn. The statistics refresh draws from seed 0, as the JAX one does;
+the validation-loss and predict steps run in eval mode and draw nothing.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import contextlib
 
 import torch
 
+from cvcs_tpu_torch.models.blocks import seed_dropout
 from cvcs_tpu_torch.train.state import TrainState
 
 
@@ -50,6 +57,7 @@ def train_step(state: TrainState, loss_fn, image, mask, *, accum: int = 1,
                          f"{x.shape[0]}")
     opt = state.optimizer.opt
     opt.zero_grad(set_to_none=True)
+    seed_dropout(model, state.dropout_seed, state.step)
     with frozen_bn_stats(model, frozen=not update_stats):
         if accum == 1:
             loss = loss_fn(model(x), mask)
@@ -76,6 +84,7 @@ def stats_step(state: TrainState, image) -> None:
     only effect is the statistics update (the companion of
     ``update_stats=False``)."""
     state.model.train()
+    seed_dropout(state.model, 0)
     state.model(image.to(torch.float32))
 
 

@@ -1,10 +1,11 @@
-"""Carry JAX SwinUNet and UNet variables into the port.
+"""Carry JAX SwinUNet, UNet and SegFormer variables into the port.
 
-:func:`swin_state_dict` and :func:`unet_state_dict` turn the JAX parameter
-tree plus ``batch_stats`` (nested dicts of numpy arrays, flax module
-names) into the port's ``state_dict`` under the torch names — the same
-names and values that ``cvcs_tpu.utils.torch_export.export_swin`` and
-``export_unet`` write, so either source loads with ``strict=True``:
+:func:`swin_state_dict`, :func:`unet_state_dict` and
+:func:`segformer_state_dict` turn the JAX parameter tree plus
+``batch_stats`` (nested dicts of numpy arrays, flax module names) into the
+port's ``state_dict`` under the torch names — the same names and values
+that ``cvcs_tpu.utils.torch_export.export_swin``, ``export_unet`` and
+``export_segformer`` write, so either source loads with ``strict=True``:
 
 * conv kernels HWIO -> OIHW;
 * Dense kernels transposed ((in, out) -> (out, in));
@@ -138,13 +139,63 @@ def unet_state_dict(variables: dict, upsample: str = "transpose") -> dict:
     return w.sd
 
 
+def segformer_state_dict(variables: dict, depths=(3, 4, 18, 3),
+                         sr_ratios=(8, 4, 2, 1)) -> dict:
+    """JAX SegFormer ``{"params", "batch_stats"}`` -> port state dict under
+    Hugging Face's names plus the reference's ``seq`` tail, the names and
+    values ``export_segformer`` writes."""
+    w = _Writer(variables)
+    enc = ("MiTEncoder_0",)
+    blk_idx = 0
+    for s in range(4):
+        pe = f"segformer.encoder.patch_embeddings.{s}"
+        w.conv(enc + (f"Conv_{s}",), f"{pe}.proj")
+        w.ln(enc + (f"LayerNorm_{2 * s}",), f"{pe}.layer_norm")
+        for d in range(depths[s]):
+            base = f"segformer.encoder.block.{s}.{d}"
+            blk = enc + (f"MiTBlock_{blk_idx}",)
+            att = blk + ("EfficientAttention_0",)
+            ffn = blk + ("MixFFN_0",)
+            w.ln(blk + ("LayerNorm_0",), f"{base}.layer_norm_1")
+            w.dense(att + ("Dense_0",), f"{base}.attention.self.query")
+            if sr_ratios[s] > 1:
+                w.conv(att + ("Conv_0",), f"{base}.attention.self.sr")
+                w.ln(att + ("LayerNorm_0",),
+                     f"{base}.attention.self.layer_norm")
+            w.dense(att + ("Dense_1",), f"{base}.attention.self.key")
+            w.dense(att + ("Dense_2",), f"{base}.attention.self.value")
+            w.dense(att + ("Dense_3",), f"{base}.attention.output.dense")
+            w.ln(blk + ("LayerNorm_1",), f"{base}.layer_norm_2")
+            w.dense(ffn + ("Dense_0",), f"{base}.mlp.dense1")
+            w.conv(ffn + ("Conv_0",), f"{base}.mlp.dwconv.dwconv")
+            w.dense(ffn + ("Dense_1",), f"{base}.mlp.dense2")
+            blk_idx += 1
+        w.ln(enc + (f"LayerNorm_{2 * s + 1}",),
+             f"segformer.encoder.layer_norm.{s}")
+    head = ("SegFormerHead_0",)
+    for s in range(4):
+        w.dense(head + (f"Dense_{s}",), f"decode_head.linear_c.{s}.proj")
+    w.conv(head + ("Conv_0",), "decode_head.linear_fuse")
+    w.bn(head + ("BatchNorm_0",), "decode_head.batch_norm")
+    w.conv(head + ("Conv_1",), "decode_head.classifier")
+    w.convt(("ConvTranspose_0",), "seq.0")
+    w.convt(("ConvTranspose_1",), "seq.2")
+    w.conv(("Conv_0",), "seq.4")
+    return w.sd
+
+
 def load_jax_variables(model, variables: dict):
-    """Load JAX variables into a port ``SwinUNet`` or ``UNet`` (strict)."""
+    """Load JAX variables into a port ``SwinUNet``, ``UNet`` or
+    ``SegFormer`` (strict)."""
+    from cvcs_tpu_torch.models.segformer import SegFormer
     from cvcs_tpu_torch.models.swin import SwinUNet
     from cvcs_tpu_torch.models.unet import UNet
 
     if isinstance(model, SwinUNet):
         sd = swin_state_dict(variables, model.depths)
+    elif isinstance(model, SegFormer):
+        sd = segformer_state_dict(variables, model.config.depths,
+                                  model.config.sr_ratios)
     elif isinstance(model, UNet):
         sd = unet_state_dict(variables, model.upsample)
     else:
