@@ -33,8 +33,10 @@ Phases (any failure raises and the script exits non-zero):
    f32 checks cannot see a wrong bf16 mma fragment; this one can).
    Then full-width Unetv2, the serve recipe's model, segments the same
    scene (the recipe's two-by-four mesh cut to one card), and so does
-   full-width SegformerMod (MiT-B3, 47,257,600 parameters, checked), each
-   with one forward timed and traced;
+   full-width SegformerMod (MiT-B3, 47,257,600 parameters, checked), and
+   the DeepLab members of ``configs/ensemble_test.yaml``, Resnet101 and
+   MobileNet (58,629,712 and 11,024,192 parameters, checked), each with
+   one forward timed and traced;
 5. the training path: ``python -m cvcs_tpu_torch.cli.train``'s ``main``
    trains full-width SwinUnet with the recipe's geometry (p 224, batch
    10, wCEL with ignore_background, SGD2, bf16, random_shift,
@@ -51,7 +53,16 @@ Phases (any failure raises and the script exits non-zero):
    per chunk), resumed; ``cli.evaluate`` on the checkpoint the resumed
    run wrote (the restored weights equal to the trainer's, the metrics
    to the trainer's own evaluation, the tables printed); and one epoch
-   through ``build_fused_ce`` (K3, K4 and K5);
+   through ``build_fused_ce`` (K3, K4 and K5). Then Resnet101 the same
+   way (K5 once per chunk), resumed, and one epoch through
+   ``build_fused_ce`` (K3, K4, K5), and MobileNet for one epoch (K5),
+   each step timed and traced. Last, the four-member ensemble of
+   ``configs/ensemble_test.yaml`` (Unetv2, Resnet101, MobileNet,
+   SegformerMod) from the checkpoints this phase wrote: ``cli.evaluate``
+   with ``net: Ensemble`` on the 80 validation patches, whose confusion
+   matrix must equal that of the members' own predictions voted on the
+   host, and one ``predict_scene`` of the ensemble on a 1792 x 2240
+   raster;
 6. training correctness: one f32 SwinUnet train step through the kernels
    and one through the plain versions (called directly by this script)
    from the same weights and batch agree; a 30-step bf16 fixed-batch
@@ -64,7 +75,12 @@ Phases (any failure raises and the script exits non-zero):
    from one dropout seed give bit-equal losses and another seed another;
    a bf16 forward's logits are within the bf16 tolerance of an f32
    forward's and its labels agree on >= 97.5% of the pixels (the JAX
-   package's own share is 98.50%);
+   package's own share is 98.50%); the five DeepLab names' f32 logits on
+   the card against the same weights on the CPU (cuDNN's dilated,
+   depthwise and grouped convolutions against the CPU's); the bf16
+   Resnet101 labels against its f32 ones; one f32 Resnet101 step through
+   K3/K4 against one through the eager wCEL by the U-Net rule; one SGD2
+   step on MobileNetGoogle decays its unread ``aux_layer`` as optax does;
 7. times (CUDA events, after warm-up; K3 and K4 also their traced device
    time) of each kernel beside its bound, its plain version and a library
    yardstick; K1 both at the serving shapes (per forward) and at the p-224
@@ -847,8 +863,11 @@ def synthetic_scene(h, w, seed):
     return img + rng.integers(0, 64, (h, w, 3), np.uint8)
 
 
-# cuDNN / cuBLAS kernel names: the convolutions (and GEMMs) of a trace
-CONV_NAMES = ("xmma", "cudnn", "conv", "gemm", "cutlass", "nvjet")
+# cuDNN / cuBLAS kernel names: the convolutions (and GEMMs) of a trace;
+# ``dgrad_engine`` / ``wgrad_engine`` are cuDNN's generic backward
+# convolutions (the DeepLab ASPP's atrous convs take them)
+CONV_NAMES = ("xmma", "cudnn", "conv", "gemm", "cutlass", "nvjet", "dgrad",
+              "wgrad")
 
 
 def device_profile(fn, attempts: int = 3, per_launch: bool = False) -> dict:
@@ -932,7 +951,9 @@ def forward_breakdown(model, name: str = "SwinUnet") -> dict:
         f"{prof['span_ms']:.3f} ms span, device idle "
         f"{prof['idle_share'] * 100:.1f}%{k1}; convolutions and GEMMs "
         f"{prof['conv_ms']:.3f} ms = "
-        f"{prof['conv_ms'] / prof['kernel_ms'] * 100:.1f}%")
+        f"{prof['conv_ms'] / prof['kernel_ms'] * 100:.1f}%, the rest "
+        f"(BatchNorm, casts, elementwise, resizes) "
+        f"{(1 - prof['conv_ms'] / prof['kernel_ms']) * 100:.1f}%")
     for k, (t, n) in top:
         log(f"    {t:9.3f} ms {n:4d}x {k[:90]}")
     return dict(ms=ms, kernel_ms=prof["kernel_ms"], span_ms=prof["span_ms"],
@@ -1210,6 +1231,61 @@ def train_breakdown(trainer, name: str = "SwinUnet") -> dict:
                      for k, (t, n) in top])
 
 
+def train_config(data: dict, net: str, epochs: int, ckpt_dir: Path,
+                 metrics_log: Path) -> dict:
+    """The recipe's geometry (p 224, batch 10, wCEL with ignore_background,
+    SGD2, bf16, random_shift) with ``augmentation: fused`` on the train
+    cell's cuts."""
+    return dict(data, checkpoint_directory=str(ckpt_dir), device="gpu",
+                net=net, epochs=epochs, chunk_size=2, validation_chunk_size=1,
+                patch_size=224, batch_size=B_TRAIN, loss="wCEL", opt="SGD2",
+                ignore_background=True, random_shift=True,
+                augmentation="fused", freq=1, precision_evaluation_freq=1,
+                num_classes=15, verbose=True, precision="bf16", seed=0,
+                metrics_log=str(metrics_log))
+
+
+def run_train_main(cfg: dict, path: Path, name: str) -> dict:
+    """``cli.train``'s ``main`` on ``cfg``: its counts (K5 once per chunk,
+    no other kernel), finite losses, the epoch's throughput."""
+    import yaml
+
+    from cvcs_tpu_torch.cli import train as train_cli
+
+    path.write_text(yaml.safe_dump(cfg))
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = train_cli.main(["train", str(path)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = kernel_counts()
+    assert rc == 0, rc
+    epochs = cfg["epochs"]
+    metrics = [json.loads(x) for x in
+               Path(cfg["metrics_log"]).read_text().splitlines()]
+    meta = json.loads((Path(cfg["checkpoint_directory"])
+                       / f"checkpoint{epochs}" / "meta.json").read_text())
+    losses = meta["training_loss_values"]
+    log(f"  cli.train {name} bf16, {epochs} epoch(s) x {STEPS_PER_EPOCH} "
+        f"steps in {secs:.2f} s (model build, class weights, validation and "
+        f"evaluation included); epoch {epochs}: "
+        f"{metrics[-1]['patches_per_s']:.1f} patches/s over "
+        f"{metrics[-1]['epoch_s']:.2f} s; losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; validation losses "
+        f"{[round(v, 4) for v in meta['validation_loss_values'][::8]]}; "
+        f"launches {counts} (expected K5 {epochs}, one per chunk, and no "
+        f"other)")
+    assert counts == dict(K1=0, K2=0, K3=0, K4=0, K5=epochs), counts
+    assert len(losses) == epochs * STEPS_PER_EPOCH
+    assert np.isfinite(losses).all()
+    assert np.isfinite(meta["validation_loss_values"]).all()
+    assert len(meta["conf_flat"]) == epochs
+    return dict(launches=dict(K5=counts["K5"]), seconds=secs,
+                patches_per_s=metrics[-1]["patches_per_s"],
+                epoch_s=metrics[-1]["epoch_s"], first_loss=losses[0],
+                last_loss=losses[-1], losses=losses)
+
+
 def train_path(result: dict) -> None:
     """Train through the CLI's entry point, check the counts, resume."""
     import yaml
@@ -1291,25 +1367,27 @@ def train_path(result: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def unet_train_path(result: dict) -> None:
+def unet_train_path(result: dict, ckpts: Path) -> None:
     """The canonical Unetv2 recipe through the CLI's entry point (eager
     wCEL: no hand-written kernel runs), resumed; then one epoch of a
     ``Trainer`` built the same way with ``build_fused_ce`` as its loss,
     which must launch K3 once per train step and per validation batch and
-    K4 once per train step."""
+    K4 once per train step. Its checkpoints go to ``ckpts / "Unetv2"``,
+    where the ensemble phase reads them."""
     import yaml
 
     from cvcs_tpu_torch.cli import train as train_cli
     from cvcs_tpu_torch.ops import fused_ce
     from cvcs_tpu_torch.train.loop import Trainer
 
+    ckpt_dir = ckpts / "Unetv2"
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         # configs/train_unetv2.yaml, on the synthetic set and 2 epochs
         cfg = dict(
             train=synthetic_dataset(tmp / "train", 2, seed=20),
             validation=synthetic_dataset(tmp / "val", 1, seed=30),
-            checkpoint_directory=str(tmp / "ckpt"), device="gpu",
+            checkpoint_directory=str(ckpt_dir), device="gpu",
             net="Unetv2", epochs=TRAIN_EPOCHS, chunk_size=2,
             validation_chunk_size=1, patch_size=224, batch_size=B_TRAIN,
             loss="wCEL", opt="SGD2", ignore_background=True,
@@ -1328,7 +1406,7 @@ def unet_train_path(result: dict) -> None:
         steps = TRAIN_EPOCHS * STEPS_PER_EPOCH
         metrics = [json.loads(x) for x in
                    (tmp / "metrics.jsonl").read_text().splitlines()]
-        meta = json.loads((tmp / "ckpt" / f"checkpoint{TRAIN_EPOCHS}"
+        meta = json.loads((ckpt_dir / f"checkpoint{TRAIN_EPOCHS}"
                            / "meta.json").read_text())
         losses = meta["training_loss_values"]
         log(f"  cli.train Unetv2 bf16, {TRAIN_EPOCHS} epochs x "
@@ -1350,11 +1428,11 @@ def unet_train_path(result: dict) -> None:
             epoch2_s=metrics[1]["epoch_s"], first_loss=losses[0],
             last_loss=losses[-1])
 
-        cfg.update(load_checkpoint=str(tmp / "ckpt" / "checkpoint1"),
+        cfg.update(load_checkpoint=str(ckpt_dir / "checkpoint1"),
                    metrics_log=str(tmp / "resume.jsonl"))
         path.write_text(yaml.safe_dump(cfg))
         assert train_cli.main(["train", str(path)]) == 0
-        again = json.loads((tmp / "ckpt" / f"checkpoint{TRAIN_EPOCHS}"
+        again = json.loads((ckpt_dir / f"checkpoint{TRAIN_EPOCHS}"
                             / "meta.json").read_text())
         hist = again["training_loss_values"]
         log(f"  resumed from checkpoint1: {len(hist)} training losses, the "
@@ -1667,7 +1745,7 @@ def segformer_scene(result: dict, scene) -> None:
     torch.cuda.empty_cache()
 
 
-def segformer_train_path(result: dict) -> None:
+def segformer_train_path(result: dict, ckpts: Path) -> None:
     """SegformerMod through ``cli.train``'s ``main`` with the train cell's
     geometry and cuts and ``augmentation: fused`` (K5 once per chunk),
     resumed from checkpoint1 through ``build_trainer`` (what ``main``
@@ -1675,62 +1753,26 @@ def segformer_train_path(result: dict) -> None:
     restored weights must equal the trainer's and whose metrics must
     match the trainer's own evaluation of the same state; the breakdown
     of a step; then one epoch through ``build_fused_ce`` (K3 per step and
-    validation batch, K4 per step, K5 per chunk)."""
-    import yaml
-
+    validation batch, K4 per step, K5 per chunk). Its checkpoints go to
+    ``ckpts / "SegformerMod"``, where the ensemble phase reads them."""
     from cvcs_tpu_torch.cli import common
     from cvcs_tpu_torch.cli import evaluate as evaluate_cli
     from cvcs_tpu_torch.cli import train as train_cli
     from cvcs_tpu_torch.ops import fused_ce
     from cvcs_tpu_torch.train.loop import Trainer
 
-    out: dict = {}
+    ckpt_dir = ckpts / "SegformerMod"
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        cfg = dict(
-            train=synthetic_dataset(tmp / "train", 2, seed=20),
-            validation=synthetic_dataset(tmp / "val", 1, seed=30),
-            checkpoint_directory=str(tmp / "ckpt"), device="gpu",
-            net="SegformerMod", epochs=TRAIN_EPOCHS, chunk_size=2,
-            validation_chunk_size=1, patch_size=224, batch_size=B_TRAIN,
-            loss="wCEL", opt="SGD2", ignore_background=True,
-            random_shift=True, augmentation="fused", freq=1,
-            precision_evaluation_freq=1, num_classes=15, verbose=True,
-            precision="bf16", seed=0, metrics_log=str(tmp / "metrics.jsonl"))
-        path = tmp / "train.yaml"
-        path.write_text(yaml.safe_dump(cfg))
-        reset_counts()
-        t0 = time.perf_counter()
-        rc = train_cli.main(["train", str(path)])
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        counts = kernel_counts()
-        assert rc == 0, rc
+        data = dict(train=synthetic_dataset(tmp / "train", 2, seed=20),
+                    validation=synthetic_dataset(tmp / "val", 1, seed=30))
+        cfg = train_config(data, "SegformerMod", TRAIN_EPOCHS, ckpt_dir,
+                           tmp / "metrics.jsonl")
+        out = run_train_main(cfg, tmp / "train.yaml", "SegformerMod")
+        losses = out.pop("losses")
         steps = TRAIN_EPOCHS * STEPS_PER_EPOCH
-        metrics = [json.loads(x) for x in
-                   (tmp / "metrics.jsonl").read_text().splitlines()]
-        meta = json.loads((tmp / "ckpt" / f"checkpoint{TRAIN_EPOCHS}"
-                           / "meta.json").read_text())
-        losses = meta["training_loss_values"]
-        log(f"  cli.train SegformerMod bf16, {TRAIN_EPOCHS} epochs x "
-            f"{STEPS_PER_EPOCH} steps in {secs:.2f} s (model build, class "
-            f"weights, validation and evaluation included); epoch 2: "
-            f"{metrics[1]['patches_per_s']:.1f} patches/s over "
-            f"{metrics[1]['epoch_s']:.2f} s; losses {losses[0]:.4f} -> "
-            f"{losses[-1]:.4f}; validation losses "
-            f"{[round(v, 4) for v in meta['validation_loss_values'][::8]]}; "
-            f"launches {counts} (expected K5 {TRAIN_EPOCHS}, one per chunk, "
-            f"and no other)")
-        assert counts == dict(K1=0, K2=0, K3=0, K4=0, K5=TRAIN_EPOCHS)
-        assert len(losses) == steps and np.isfinite(losses).all()
-        assert np.isfinite(meta["validation_loss_values"]).all()
-        assert len(meta["conf_flat"]) == TRAIN_EPOCHS
-        out.update(launches=dict(K5=counts["K5"]), seconds=secs,
-                   patches_per_s_epoch2=metrics[1]["patches_per_s"],
-                   epoch2_s=metrics[1]["epoch_s"], first_loss=losses[0],
-                   last_loss=losses[-1])
 
-        cfg.update(load_checkpoint=str(tmp / "ckpt" / "checkpoint1"),
+        cfg.update(load_checkpoint=str(ckpt_dir / "checkpoint1"),
                    metrics_log=str(tmp / "resume.jsonl"))
         trainer = train_cli.build_trainer(cfg)
         trainer.train()
@@ -1747,7 +1789,7 @@ def segformer_train_path(result: dict) -> None:
         eval_cfg = dict(dataset=cfg["validation"], net="SegformerMod",
                         patch_size=224, num_classes=15, precision="bf16",
                         ignore_background=True, batch_size=8,
-                        load_checkpoint=str(tmp / "ckpt"
+                        load_checkpoint=str(ckpt_dir
                                             / f"checkpoint{TRAIN_EPOCHS}"))
         restored, _, _ = common.build_apply(
             eval_cfg, common.device_context(eval_cfg))
@@ -1943,6 +1985,406 @@ def segformer_correctness(result: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# -- DeepLab: Resnet101 and MobileNet at full width, and the Ensemble ---------
+DEEPLAB_PARAMETERS = {"Resnet101": 58_629_712, "Resnet50": 39_637_584,
+                      "MobileNet": 11_024_192, "MobileNetGoogle": 12_133_560,
+                      "MobileNetResnet18": 20_775_480}  # 16 classes, = JAX's
+# bf16 labels vs f32 labels of Resnet101 at random initial weights: the
+# JAX package's own bf16 forward agrees with its f32 one on 99.98% of the
+# pixels there (the port's on 99.83%; tests/test_torch_deeplab.py, on the
+# CPU), so a point below
+MIN_AGREEMENT_R101 = 0.989
+TOL_CARD_CPU = 1e-4                # f32 logits, x max(1, |CPU|max)
+
+
+def deeplab_scene(result: dict, scene) -> None:
+    """Full-width Resnet101 and MobileNet (random weights, seed 0, bf16)
+    segment the full-size scene at the other scene phases' geometry; one
+    forward of each is timed and traced. The JAX DeepLab reaches no Pallas
+    kernel, so no hand-written kernel runs on this path."""
+    from cvcs_tpu_torch.infer import InferenceConfig, SceneSegmenter
+    from cvcs_tpu_torch.models import build_model
+    from cvcs_tpu_torch.train.state import param_count
+
+    cfg = InferenceConfig(patch_size=224, border_correction=256,
+                          batch_tiles=128, num_classes=16)
+    out = {}
+    for name in ("Resnet101", "MobileNet"):
+        model, _ = build_model(name, NC, seed=0, dtype=torch.bfloat16)
+        n_params = param_count(model)
+        seg = SceneSegmenter(model, cfg)
+        seg.predict_scene(scene[:1792, :2240])      # warm-up, not counted
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        labels = seg.predict_scene(scene)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        lab = labels.cpu().numpy()
+        classes = np.unique(lab)
+        log(f"  {name} ({n_params:,} parameters, expected "
+            f"{DEEPLAB_PARAMETERS[name]:,}) predict_scene 6800x7200x3 bf16: "
+            f"labels {lab.shape} {lab.dtype}, {len(classes)} classes, 960 "
+            f"tiles in {secs:.2f} s = {960 / secs:.1f} tiles/s; hand-written "
+            f"kernel launches {kernel_counts()} (none on this path)")
+        assert n_params == DEEPLAB_PARAMETERS[name], n_params
+        assert lab.shape == (6720, 7168) and lab.dtype == np.uint8
+        assert classes.max() < NC
+        assert not any(kernel_counts().values())
+        out[name] = dict(parameters=n_params, tiles_per_s=960 / secs,
+                         seconds=secs, forward=forward_breakdown(model, name))
+        del model, seg, labels
+        torch.cuda.empty_cache()
+    result["deeplab_scene"] = out
+
+
+def deeplab_train_path(result: dict, ckpts: Path) -> None:
+    """Resnet101 through ``cli.train``'s ``main`` with the recipe's
+    geometry and ``augmentation: fused`` on the train cell's cuts (K5 once
+    per chunk), resumed from checkpoint1; one epoch of a ``Trainer`` built
+    the same way with ``build_fused_ce`` (K3 per step and validation
+    batch, K4 per step, K5 per chunk), whose steps are timed and traced;
+    then MobileNet for one epoch through ``main``, and its steps timed and
+    traced. The checkpoints go to ``ckpts / net``, where the ensemble
+    phase reads them."""
+    from cvcs_tpu_torch.cli import train as train_cli
+    from cvcs_tpu_torch.ops import fused_ce
+    from cvcs_tpu_torch.train.loop import Trainer
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data = dict(train=synthetic_dataset(tmp / "train", 2, seed=20),
+                    validation=synthetic_dataset(tmp / "val", 1, seed=30))
+        cfg = train_config(data, "Resnet101", TRAIN_EPOCHS,
+                           ckpts / "Resnet101", tmp / "r101.jsonl")
+        r101 = run_train_main(cfg, tmp / "r101.yaml", "Resnet101")
+        losses = r101.pop("losses")
+
+        cfg.update(load_checkpoint=str(ckpts / "Resnet101" / "checkpoint1"),
+                   metrics_log=str(tmp / "resume.jsonl"))
+        trainer = train_cli.build_trainer(cfg)
+        trainer.train()
+        hist = trainer.training_loss_values
+        log(f"  resumed from checkpoint1: {len(hist)} training losses, the "
+            f"first {STEPS_PER_EPOCH} equal to the first run's: "
+            f"{hist[:STEPS_PER_EPOCH] == losses[:STEPS_PER_EPOCH]}; epoch 2 "
+            f"again {hist[STEPS_PER_EPOCH]:.4f} -> {hist[-1]:.4f}")
+        assert len(hist) == len(losses) and np.isfinite(hist).all()
+        assert hist[:STEPS_PER_EPOCH] == losses[:STEPS_PER_EPOCH]
+        del trainer
+
+        base = train_cli.build_trainer(dict(
+            cfg, load_checkpoint=None, epochs=1,
+            checkpoint_directory=str(tmp / "fused"),
+            metrics_log=str(tmp / "fused.jsonl")))
+        weights = base.train_loader.class_weights(NC, True)
+        trainer = Trainer(base.spec, base.state,
+                          fused_ce.build_fused_ce(weights,
+                                                  ignore_background=True),
+                          base.train_loader, base.val_loader, base.config)
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = kernel_counts()
+        fused_losses = trainer.training_loss_values
+        want = dict(K1=0, K2=0, K3=STEPS_PER_EPOCH + VAL_BATCHES,
+                    K4=STEPS_PER_EPOCH, K5=1)
+        log(f"  Trainer(loss_fn=build_fused_ce) Resnet101 bf16, 1 epoch in "
+            f"{secs:.2f} s: losses {fused_losses[0]:.4f} -> "
+            f"{fused_losses[-1]:.4f}; launches {counts} (expected {want}: "
+            f"K3 {STEPS_PER_EPOCH} steps + {VAL_BATCHES} validation batches, "
+            "K4 a step, K5 a chunk)")
+        assert counts == want, counts
+        assert len(fused_losses) == STEPS_PER_EPOCH
+        assert np.isfinite(fused_losses).all()
+        r101["launches"].update(K3=counts["K3"], K4=counts["K4"],
+                                K5_fused_epoch=counts["K5"])
+        r101.update(fused_epoch_s=secs,
+                    fused_losses=[fused_losses[0], fused_losses[-1]],
+                    breakdown=train_breakdown(trainer,
+                                              "Resnet101 (fused loss)"))
+        out["resnet101"] = r101
+        del trainer, base
+        torch.cuda.empty_cache()
+
+        cfg = train_config(data, "MobileNet", 1, ckpts / "MobileNet",
+                           tmp / "mobilenet.jsonl")
+        mobilenet = run_train_main(cfg, tmp / "mobilenet.yaml", "MobileNet")
+        del mobilenet["losses"]
+        trainer = train_cli.build_trainer(dict(
+            cfg, checkpoint_directory=str(tmp / "mobilenet_steps")))
+        mobilenet["breakdown"] = train_breakdown(trainer, "MobileNet")
+        out["mobilenet"] = mobilenet
+        del trainer
+    result["deeplab_train"] = out
+    torch.cuda.empty_cache()
+
+
+def deeplab_correctness(result: dict) -> None:
+    """The five DeepLab names' f32 eval logits on the card against the same
+    weights on the CPU (p 64, batch 2, cuDNN's deterministic algorithms,
+    TF32 off): within ``TOL_CARD_CPU`` * max(1, |CPU|max), which holds
+    cuDNN's dilated, depthwise and grouped convolutions to the CPU's. The
+    bf16 Resnet101 labels against its f32 labels on 20 validation
+    patches (>= ``MIN_AGREEMENT_R101``). One f32 Resnet101 step through
+    K3/K4 against one through the eager wCEL by the U-Net and SegFormer
+    rule (loss 1e-5 relative, each parameter's update within 5e-2 of the
+    eager one's, ``first_updates``; half the gradient must fail). One SGD2
+    step on MobileNetGoogle: its ``aux_layer``, which the head never
+    reads, gets the momentum optax's decay gives it, wd * p exactly, and
+    moves by lr times that, to within one f32 ulp."""
+    import copy
+
+    from cvcs_tpu_torch.data.reader import class_weights
+    from cvcs_tpu_torch.models import build_model
+    from cvcs_tpu_torch.ops import fused_ce, losses
+    from cvcs_tpu_torch.train.optim import build_optimizer
+    from cvcs_tpu_torch.train.state import TrainState
+    from cvcs_tpu_torch.train.step import train_step
+
+    out: dict = {"card_vs_cpu": {}}
+    g = torch.Generator().manual_seed(11)
+    x = torch.randint(0, 256, (2, 64, 64, 3), generator=g).float()
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in DEEPLAB_PARAMETERS:
+            cpu, _ = build_model(name, NC, device="cpu", seed=0,
+                                 dtype=torch.float32)
+            card = copy.deepcopy(cpu).cuda()
+            with torch.inference_mode():
+                want = cpu(x)
+                got = card(x.cuda()).cpu()
+            err = float((got - want).abs().max()) / max(
+                1.0, float(want.abs().max()))
+            out["card_vs_cpu"][name] = err
+            same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+            log(f"  {name} f32 p 64 batch 2, card vs CPU: max logit error / "
+                f"max(1, |CPU|max) {err:.2e} (tol {TOL_CARD_CPU:.0e}); "
+                f"labels agree on {same * 100:.3f}%")
+            assert err <= TOL_CARD_CPU, (name, err)
+            del cpu, card
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    patches = torch.from_numpy(
+        synthetic_scene(1792, 2240, seed=30)[:896, :1120]
+        .reshape(4, 224, 5, 224, 3).transpose(0, 2, 1, 3, 4)
+        .reshape(20, 224, 224, 3).copy()).cuda().float()
+    logits = {}
+    for dt in (torch.float32, torch.bfloat16):
+        model, _ = build_model("Resnet101", NC, seed=0, dtype=dt)
+        with torch.inference_mode():
+            logits[dt] = model(patches)
+        del model
+    agree = float((logits[torch.float32].argmax(-1)
+                   == logits[torch.bfloat16].argmax(-1)).float().mean())
+    logit_err = float((logits[torch.bfloat16] - logits[torch.float32]).abs()
+                      .max()) / max(1.0, float(logits[torch.float32].abs()
+                                               .max()))
+    log(f"  bf16 vs f32 Resnet101 on 20 patches of the validation scene: "
+        f"labels agree on {agree * 100:.3f}% (limit "
+        f"{MIN_AGREEMENT_R101 * 100:.1f}%); max logit error / max(1, "
+        f"|f32|max) {logit_err:.2e}")
+    assert agree >= MIN_AGREEMENT_R101
+    out.update(bf16_label_agreement=agree, bf16_logit_err=logit_err)
+    del logits, patches
+
+    g = torch.Generator().manual_seed(7)
+    image = torch.randint(0, 256, (B_TRAIN, 224, 224, 3), generator=g,
+                          dtype=torch.uint8).cuda()
+    blocks = torch.randint(0, NC, (B_TRAIN, 7, 7), generator=g)
+    blocks[0, 0, :3] = 255                       # void
+    mask = blocks.repeat_interleave(32, 1).repeat_interleave(32, 2)
+    weights = class_weights(np.bincount(mask[mask < NC].numpy(),
+                                        minlength=NC), True)
+    mask = mask.to(torch.int32).cuda()
+    fused = fused_ce.build_fused_ce(weights, ignore_background=True)
+    eager = losses.build_loss("wCEL", weights=weights, ignore_background=True,
+                              device="cuda")
+
+    def one_step(name, loss_fn, img=image, msk=mask):
+        model, _ = build_model(name, NC, seed=0, dtype=torch.float32)
+        opt = build_optimizer("SGD2", model.parameters())
+        opt.set_epoch(0)
+        state = TrainState(model, opt)
+        loss = float(train_step(state, loss_fn, img, msk))
+        return loss, state
+
+    def half_fused(logits, labels):        # same loss, half its gradient
+        loss = fused(logits, labels)
+        return 0.5 * loss + 0.5 * loss.detach()
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        before = kernel_counts()
+        f_loss, state = one_step("Resnet101", fused)
+        f_upd = first_updates(state)
+        after = kernel_counts()
+        assert (after["K3"] - before["K3"],
+                after["K4"] - before["K4"]) == (1, 1)
+        e_loss, state = one_step("Resnet101", eager)
+        e_upd = first_updates(state)
+        h_loss, state = one_step("Resnet101", half_fused)
+        h_upd = first_updates(state)
+        del state
+    finally:
+        torch.backends.cudnn.deterministic = False
+    rel = abs(f_loss - e_loss) / abs(e_loss)
+    names, zero = list(e_upd), {k: 0.0 for k in e_upd}
+    upd, upd_max = update_err(f_upd, e_upd, zero, names)
+    upd_half, _ = update_err(h_upd, e_upd, zero, names)
+    log(f"  f32 Resnet101 step, fused K3/K4 vs eager wCEL: loss "
+        f"{f_loss:.6f} vs {e_loss:.6f} (relative {rel:.2e}, tol 1e-5); "
+        f"largest parameter update {upd_max:.3e}; update error {upd:.2e} "
+        f"(tol {TOL_UPDATE:.0e}); with half the gradient {upd_half:.2e} "
+        "(must fail)")
+    assert rel <= 1e-5 and upd <= TOL_UPDATE
+    assert h_loss == f_loss and upd_half > TOL_UPDATE
+    out.update(f32_fused_vs_eager_loss_rel=rel,
+               f32_fused_vs_eager_update_err=upd, largest_update=upd_max,
+               half_gradient_update_err=upd_half)
+    del f_upd, e_upd, h_upd
+    torch.cuda.empty_cache()
+
+    start = build_model("MobileNetGoogle", NC, seed=0,
+                        dtype=torch.float32)[0].backbone.aux_layer
+    start = {k: v.detach().clone() for k, v in start.named_parameters()}
+    _, state = one_step("MobileNetGoogle", eager, image[:2], mask[:2])
+    aux = state.model.backbone.aux_layer
+    group = state.optimizer.opt.param_groups[0]
+    moved = {}
+    for k, p in aux.named_parameters():
+        buf = state.optimizer.opt.state[p]["momentum_buffer"]
+        want_buf = start[k] * group["weight_decay"]     # optax: 0 + wd * p
+        want_p = start[k] - group["lr"] * want_buf
+        ulps = ((p.detach() - want_p).abs()
+                / torch.finfo(torch.float32).eps
+                / want_p.abs().clamp(min=torch.finfo(torch.float32).tiny))
+        moved[k] = dict(buffer_equal=bool(torch.equal(buf, want_buf)),
+                        max_ulps=float(ulps.max()),
+                        moved=int((p.detach() != start[k]).sum()),
+                        size=p.numel())
+        assert moved[k]["buffer_equal"] and moved[k]["max_ulps"] <= 1.0, (
+            k, moved[k])
+    assert {id(p) for p in state.unused} == {id(p) for p in aux.parameters()}
+    log(f"  SGD2 step on MobileNetGoogle (p 224, batch 2): its unused "
+        f"aux_layer's momentum equals wd * p exactly and the parameters are "
+        f"within 1 ulp of p - lr * wd * p: {moved}")
+    out["aux_layer_decay"] = moved
+    result["deeplab_correctness"] = out
+    del state
+    torch.cuda.empty_cache()
+
+
+def ensemble_path(result: dict, ckpts: Path) -> None:
+    """The four-member ensemble of ``configs/ensemble_test.yaml`` (Unetv2,
+    Resnet101, MobileNet, SegformerMod), each member the checkpoint the
+    train phase wrote for it: ``cli.evaluate`` with ``net: Ensemble`` on
+    the 80 validation patches, whose confusion matrix must equal the one
+    of the members' own predictions voted on the host with numpy (the
+    first maximum winning); then one ``predict_scene`` of the ensemble on
+    a 1792 x 2240 raster."""
+    import yaml
+
+    from cvcs_tpu_torch.cli import common
+    from cvcs_tpu_torch.cli import evaluate as evaluate_cli
+    from cvcs_tpu_torch.data.loader import ChunkLoader
+    from cvcs_tpu_torch.infer import InferenceConfig, SceneSegmenter
+    from cvcs_tpu_torch.metrics import scores
+
+    members = {"Unetv2": ckpts / "Unetv2" / f"checkpoint{TRAIN_EPOCHS}",
+               "Resnet101": ckpts / "Resnet101" / f"checkpoint{TRAIN_EPOCHS}",
+               "MobileNet": ckpts / "MobileNet" / "checkpoint1",
+               "SegformerMod": (ckpts / "SegformerMod"
+                                / f"checkpoint{TRAIN_EPOCHS}")}
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        member_map = tmp / "ensemble.yaml"
+        member_map.write_text(yaml.safe_dump(
+            {k: str(v) for k, v in members.items()}, sort_keys=False))
+        cfg = dict(dataset=synthetic_dataset(tmp / "val", 1, seed=30),
+                   net="Ensemble", ensemble_config=str(member_map),
+                   patch_size=224, num_classes=15, precision="bf16",
+                   ignore_background=True, batch_size=8)
+        confs = []
+        print_metrics = scores.print_metrics
+
+        def record(conf, *a, **kw):
+            confs.append(np.asarray(conf))
+            return print_metrics(conf, *a, **kw)
+
+        scores.print_metrics = record
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            ev = evaluate_cli.evaluate(cfg)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            scores.print_metrics = print_metrics
+        assert not any(kernel_counts().values())
+
+        device = torch.device("cuda")
+        chunk = ChunkLoader(cfg["dataset"], chunk_size=1, patch_size=224,
+                            seed=0, device=device).get_chunk(
+                                0, shuffle_patches=False)
+        votes = np.zeros(tuple(chunk.masks.shape) + (NC,), np.int32)
+        agree = {}
+        preds = {}
+        for name, ckpt in members.items():
+            model, _, _ = common.build_apply(
+                dict(cfg, net=name, load_checkpoint=str(ckpt)), device)
+            with torch.inference_mode():
+                preds[name] = np.concatenate([
+                    model(b.image.float()).argmax(-1).cpu().numpy()
+                    for b in chunk.batches(cfg["batch_size"],
+                                           drop_last=False)])
+            votes += preds[name][..., None] == np.arange(NC)
+            del model
+        vote = votes.argmax(-1)                 # the first maximum
+        for name, pred in preds.items():
+            agree[name] = float((pred == vote).mean())
+        target = chunk.masks.cpu().numpy()
+        keep = (target > 0) & (target < NC)     # ignore_background
+        want = np.zeros((NC, NC), np.int64)
+        np.add.at(want, (target[keep], vote[keep]), 1)
+        same = len(confs) == 1 and np.array_equal(confs[0], want)
+        log(f"  cli.evaluate net: Ensemble ({', '.join(members)}) on the "
+            f"validation scene (80 patches) in {secs:.2f} s: mIoU "
+            f"{ev['mIoU']:.6f}; confusion matrix equal to the host vote of "
+            f"the members' own predictions: {same} ({int(want.sum())} "
+            f"pixels); each member's share of pixels equal to the vote: "
+            + ", ".join(f"{k} {v * 100:.2f}%" for k, v in agree.items()))
+        assert same
+        out.update(evaluate_s=secs, mIoU=ev["mIoU"], member_agreement=agree)
+        del chunk, votes, preds
+
+        ens, spec, num_classes = common.build_apply(cfg, device)
+        seg = SceneSegmenter(ens, InferenceConfig(
+            patch_size=224, border_correction=256, batch_tiles=128,
+            num_classes=num_classes), returns_logits=spec.returns_logits)
+        raster = synthetic_scene(1792, 2240, seed=40)
+        seg.predict_scene(raster[:448, :448])       # warm-up, not counted
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lab = seg.predict_scene(raster).cpu().numpy()
+        secs = time.perf_counter() - t0
+        classes = np.unique(lab)
+        log(f"  Ensemble predict_scene 1792x2240x3 bf16 (stride product "
+            f"{spec.stride_product}): labels {lab.shape} {lab.dtype}, "
+            f"{len(classes)} classes, 80 tiles in {secs:.2f} s = "
+            f"{80 / secs:.1f} tiles/s")
+        assert lab.shape == (1792, 2240) and classes.max() < NC
+        out.update(scene_tiles_per_s=80 / secs, scene_s=secs)
+        del ens, seg
+    result["ensemble"] = out
+    torch.cuda.empty_cache()
+
+
 def kernel_entry(meta, launches, err, times, library, per, **extra) -> dict:
     t = times["total"] if "total" in times else times
     return dict(
@@ -1990,17 +2432,25 @@ def main() -> int:
     bf16_forward_check(result)
     unet_scene(result, scene)
     segformer_scene(result, scene)
+    deeplab_scene(result, scene)
     del scene
 
     log("[5] training path")
-    train_path(result)
-    unet_train_path(result)
-    segformer_train_path(result)
+    with tempfile.TemporaryDirectory() as ckpts:
+        ckpts = Path(ckpts)
+        train_path(result)
+        unet_train_path(result, ckpts)
+        segformer_train_path(result, ckpts)
+        deeplab_train_path(result, ckpts)
+        log("[5] the ensemble of the trained Unetv2, Resnet101, MobileNet and "
+            "SegformerMod")
+        ensemble_path(result, ckpts)
 
     log("[6] training correctness")
     train_correctness(result)
     unet_correctness(result)
     segformer_correctness(result)
+    deeplab_correctness(result)
 
     log("[7] times (CUDA events, mean of 10 after 2 warm-up)")
     k1_times = time_k1()
@@ -2013,9 +2463,15 @@ def main() -> int:
     tl = result["train"]["launches"]
     ul = result["unet_train"]["launches"]
     sl = result["segformer_train"]["launches"]
+    rl = result["deeplab_train"]["resnet101"]["launches"]
+    ml = result["deeplab_train"]["mobilenet"]["launches"]
     k5_paths = dict(swin_train=tl["K5"], segformer_train=sl["K5"],
-                    segformer_fused_epoch=sl["K5_fused_epoch"])
-    ce_paths = {k: dict(unet_fused_epoch=ul[k], segformer_fused_epoch=sl[k])
+                    segformer_fused_epoch=sl["K5_fused_epoch"],
+                    resnet101_train=rl["K5"],
+                    resnet101_fused_epoch=rl["K5_fused_epoch"],
+                    mobilenet_train=ml["K5"])
+    ce_paths = {k: dict(unet_fused_epoch=ul[k], segformer_fused_epoch=sl[k],
+                        resnet101_fused_epoch=rl[k])
                 for k in ("K3", "K4")}
     line = {"kernels": [
         kernel_entry(swin_attn.KERNEL, result["launches"], k1_err, k1_times,
@@ -2076,6 +2532,10 @@ def main() -> int:
         "segformer_scene": result["segformer_scene"],
         "segformer_train": result["segformer_train"],
         "segformer_correctness": result["segformer_correctness"],
+        "deeplab_scene": result["deeplab_scene"],
+        "deeplab_train": result["deeplab_train"],
+        "deeplab_correctness": result["deeplab_correctness"],
+        "ensemble": result["ensemble"],
         "seconds": time.perf_counter() - t_start}
     log(smi)
     log(json.dumps(line))

@@ -1,6 +1,6 @@
 """Shared CLI plumbing (port of ``cvcs_tpu/cli/common.py``): device
 selection, model construction from a config dict, checkpoint restore,
-label fetch and same-shape raster batching."""
+ensemble assembly, label fetch and same-shape raster batching."""
 
 from __future__ import annotations
 
@@ -12,7 +12,8 @@ import torch
 from cvcs_tpu_torch.core.device import resolve_device
 from cvcs_tpu_torch.core.precision import policy_from_config
 from cvcs_tpu_torch.infer.engine import labels_to_host
-from cvcs_tpu_torch.models import build_model
+from cvcs_tpu_torch.models import MODEL_REGISTRY, ModelSpec, build_model
+from cvcs_tpu_torch.models.ensemble import Ensemble, EnsembleMember
 from cvcs_tpu_torch.train.checkpoint import STATE, STATE_KEYS
 
 # config keys of paths the port does not run yet -> the ROADMAP item
@@ -31,10 +32,6 @@ def reject_unported(config: dict) -> None:
     for key, why in UNPORTED_KEYS.items():
         if config.get(key):
             raise NotImplementedError(f"config key {key!r}: {why}")
-    if config.get("net") == "Ensemble":
-        raise NotImplementedError(
-            "net 'Ensemble' is not yet ported to cvcs_tpu_torch; see "
-            "ROADMAP.md Queue 1 item 10 (Ensemble)")
 
 
 def device_context(config: dict) -> torch.device:
@@ -119,10 +116,47 @@ def restore_variables(config: dict, model):
     return model
 
 
+def build_ensemble(config: dict, device=None) -> Ensemble:
+    """The majority-vote ensemble of an ``ensemble_config`` file, a YAML
+    map of net name -> checkpoint (``configs/ensemble_test.yaml``). Each
+    member is built on ``device`` and restored from its own checkpoint,
+    anything :func:`restore_variables` takes (a port ``checkpointN/`` or
+    an ``.npz`` of JAX variables), and runs in eval mode."""
+    import yaml
+
+    path = config.get("ensemble_config")
+    if not path:
+        raise ValueError(
+            "To use the ensemble specify 'ensemble_config' in your "
+            "evaluation configuration file.")
+    with open(path) as f:
+        members_cfg = yaml.safe_load(f)
+    num_classes = int(config.get("num_classes", 15)) + 1
+    members = []
+    for net_name, ckpt in members_cfg.items():
+        m_config = dict(config, net=net_name, load_checkpoint=ckpt)
+        model, spec, _ = build_net(m_config, device)
+        restore_variables(m_config, model)
+        members.append(EnsembleMember(net_name, model.eval(),
+                                      returns_logits=spec.returns_logits))
+    return Ensemble(members, num_classes)
+
+
 def build_apply(config: dict, device=None):
     """``(model, spec, num_classes)`` for a config's net, seeded, then
-    weights restored from ``load_checkpoint`` if given."""
+    weights restored from ``load_checkpoint`` if given. ``net: Ensemble``
+    gives the :func:`build_ensemble` vote, with a spec whose
+    ``stride_product`` is the largest of its members' (all powers of
+    two, so also their least common multiple)."""
     reject_unported(config)
+    if config.get("net") == "Ensemble":
+        ens = build_ensemble(config, device)
+        stride = max(MODEL_REGISTRY[m.name].stride_product
+                     for m in ens.members)
+        spec = ModelSpec("Ensemble", Ensemble,
+                         returns_logits=ens.returns_logits,
+                         wrapper=ens.wrapper, stride_product=stride)
+        return ens, spec, ens.num_classes
     model, spec, num_classes = build_net(config, device)
     restore_variables(config, model)
     return model, spec, num_classes

@@ -8,8 +8,10 @@ plots.
 ``load_checkpoint`` takes what ``cli/common.py`` ``restore_variables``
 takes: a train checkpoint of the port (``checkpointN/`` or its
 ``state.pt``), a port state dict, or an ``.npz`` of JAX variables.
-Runs on the card unless the config says ``device: cpu``. ``mesh`` and
-``net: Ensemble`` raise, naming their ROADMAP items.
+``net: Ensemble`` with ``ensemble_config`` (a map of net name ->
+checkpoint) evaluates the members' majority vote, whose labels are used
+as they come. Runs on the card unless the config says ``device: cpu``.
+``mesh`` raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations

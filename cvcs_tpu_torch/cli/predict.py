@@ -3,6 +3,8 @@ sliding-window segmentation with border correction (port of
 ``cvcs_tpu/cli/predict.py``): per-patch color-mask PNGs or 3-panel
 figures in ``output/`` and an optional stitched ``out_image``.
 
+``net: Ensemble`` with ``ensemble_config`` segments with the members'
+majority vote (``tta`` is refused for it: a vote has no logits).
 ``range: [lb, ub]`` selects global patch indices (scene = index //
 tiles_per_scene); when a range covers at most a quarter of a scene and no
 stitched map is asked for, only the selected tiles are computed. The

@@ -19,7 +19,8 @@ replaced. A batch failure falls back to per-raster runs so one poison pill
 cannot block its group. ``settle_s > 0`` ignores files modified within
 the last N seconds.
 
-Config keys: ``watch_dir``, ``net``, ``patch_size`` (default 512),
+Config keys: ``watch_dir``, ``net`` (``Ensemble`` with
+``ensemble_config`` serves a majority vote), ``patch_size`` (default 512),
 ``load_checkpoint``, ``output`` (default ``<watch_dir>/output``),
 ``border_correction``, ``batch_tiles``, ``tta``, ``precision``,
 ``device``, ``poll_s`` (2.0), ``max_batch`` (8), ``max_retries`` (3),

@@ -34,22 +34,23 @@ def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
 
 
 def conv_nhwc(x, conv: nn.Conv2d, padding="same_flax") -> torch.Tensor:
-    """``conv`` on an NHWC tensor in x.dtype. ``padding="same_flax"``
-    pads like flax's default ``SAME`` (zero for a stride that divides the
-    map); an int pads symmetrically."""
+    """``conv`` (its stride, dilation and groups) on an NHWC tensor in
+    x.dtype. ``padding="same_flax"`` pads like flax's default ``SAME``
+    (zero for a stride that divides the map); an int pads
+    symmetrically."""
     dt = x.dtype
     y = x.permute(0, 3, 1, 2)          # NCHW view, channels-last strides
     if padding == "same_flax":
-        kh, kw = conv.kernel_size
+        (kh, kw), (dh, dw) = conv.kernel_size, conv.dilation
         sh, sw = conv.stride
-        top, bottom = _same_pads(y.shape[2], kh, sh)
-        left, right = _same_pads(y.shape[3], kw, sw)
+        top, bottom = _same_pads(y.shape[2], (kh - 1) * dh + 1, sh)
+        left, right = _same_pads(y.shape[3], (kw - 1) * dw + 1, sw)
         if top or bottom or left or right:
             y = F.pad(y, (left, right, top, bottom))
         padding = 0
     bias = None if conv.bias is None else conv.bias.to(dt)
-    y = F.conv2d(y, conv.weight.to(dt), bias, conv.stride, padding, 1,
-                 conv.groups)
+    y = F.conv2d(y, conv.weight.to(dt), bias, conv.stride, padding,
+                 conv.dilation, conv.groups)
     return y.permute(0, 2, 3, 1)
 
 
@@ -71,16 +72,22 @@ def linear(x, layer: nn.Linear) -> torch.Tensor:
     return F.linear(x, layer.weight.to(dt), bias)
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32, or in f64 if it is f64: the dtype flax takes
+    statistics in (``promote_types(dtype, float32)``)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _affine(xf, mean, var, scale, bias, eps, dt):
     """flax ``_normalize``: (x - mean) * (rsqrt(var + eps) * scale) + bias
-    in f32, cast to dt."""
-    mul = torch.rsqrt(var + eps) * scale.float()
-    return ((xf - mean) * mul + bias.float()).to(dt)
+    in xf's dtype (f32, or f64), cast to dt."""
+    mul = torch.rsqrt(var + eps) * scale.to(xf.dtype)
+    return ((xf - mean) * mul + bias.to(xf.dtype)).to(dt)
 
 
 def layer_norm(x, norm: nn.LayerNorm) -> torch.Tensor:
     """flax ``nn.LayerNorm``: f32 fast-variance stats over the last axis."""
-    xf = x.float()
+    xf = at_least_f32(x)
     mu = xf.mean(-1, keepdim=True)
     var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
     return _affine(xf, mu, var, norm.weight, norm.bias, norm.eps, x.dtype)
@@ -88,19 +95,15 @@ def layer_norm(x, norm: nn.LayerNorm) -> torch.Tensor:
 
 def batch_norm_eval(x, bn: nn.BatchNorm2d) -> torch.Tensor:
     """BatchNorm on running statistics over the last (channel) axis."""
-    return _affine(x.float(), bn.running_mean, bn.running_var, bn.weight,
-                   bn.bias, bn.eps, x.dtype)
-
-
-
-
-BN_MOMENTUM = 0.9    # flax convention: running = 0.9 * running + 0.1 * batch
+    return _affine(at_least_f32(x), bn.running_mean, bn.running_var,
+                   bn.weight, bn.bias, bn.eps, x.dtype)
 
 
 def batch_stats(x):
-    """f32 batch statistics over every axis but the last, with flax's fast
-    variance max(E[x^2] - E[x]^2, 0): (x in f32, mean, biased var)."""
-    xf = x.float()
+    """f32 (or f64) batch statistics over every axis but the last, with
+    flax's fast variance max(E[x^2] - E[x]^2, 0): (x in f32, mean,
+    biased var)."""
+    xf = at_least_f32(x)
     axes = tuple(range(x.dim() - 1))
     mean = xf.mean(axes)
     var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
@@ -109,25 +112,34 @@ def batch_stats(x):
 
 @torch.no_grad()
 def update_running_stats(bn: nn.BatchNorm2d, mean, var, n: int) -> None:
-    """The running-stats EMA (momentum 0.1 in torch's terms), the running
-    variance from the UNBIASED variance (factor n / (n - 1)), as torch
-    does."""
+    """The running-stats EMA with the holder's momentum in torch's terms
+    (``bn.momentum``: 0.1 by default, MobileNet's 0.01), written as flax
+    writes it, running = m * running + (1 - m) * batch with m = 1 -
+    momentum; the running variance from the UNBIASED variance (factor n /
+    (n - 1)), as torch does."""
+    m = 1.0 - bn.momentum
     correction = n / max(n - 1, 1)
-    bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
-                          + (1 - BN_MOMENTUM) * mean)
-    bn.running_var.copy_(BN_MOMENTUM * bn.running_var
-                         + (1 - BN_MOMENTUM) * var * correction)
+    bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
+    bn.running_var.copy_(m * bn.running_var + (1 - m) * var * correction)
 
 
 def batch_norm_train(x, bn: nn.BatchNorm2d) -> torch.Tensor:
     """BatchNorm on batch statistics over the last (channel) axis, the
     JAX package's ``BatchNorm`` in train mode: f32 statistics
     (:func:`batch_stats`), normalisation with the biased variance (eps
-    from ``bn``, 1e-5), and the running statistics updated
+    from ``bn``: 1e-5, or MobileNet's and GoogLeNet's 1e-3), and the
+    running statistics updated with ``bn``'s momentum
     (:func:`update_running_stats`)."""
     xf, mean, var = batch_stats(x)
     update_running_stats(bn, mean, var, xf.numel() // xf.shape[-1])
     return _affine(xf, mean, var, bn.weight, bn.bias, bn.eps, x.dtype)
+
+
+def batch_norm(x, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """:func:`batch_norm_train` or :func:`batch_norm_eval`, as the
+    holder's mode (``bn.training``, set by the model's ``train()`` and
+    ``eval()``) says."""
+    return (batch_norm_train if bn.training else batch_norm_eval)(x, bn)
 
 
 class SeededDropout(nn.Module):
@@ -187,19 +199,25 @@ def seed_dropout(model: nn.Module, seed: int, step: int = 0) -> None:
             m.reseed(mixed)
 
 
-def max_pool_nhwc(x: torch.Tensor) -> torch.Tensor:
-    """2x2 max pool, stride 2 (flax ``nn.max_pool``, VALID)."""
-    return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+def max_pool_nhwc(x: torch.Tensor, k: int = 2, stride: int | None = None,
+                  padding: int = 0, ceil_mode: bool = False) -> torch.Tensor:
+    """k x k max pool on an NHWC tensor, flax ``nn.max_pool`` with
+    ``padding`` on every side filled with -inf (the default: 2x2, stride
+    2, VALID). ``ceil_mode`` pads the bottom and right edges with -inf
+    until the last window fits, as torch's ``MaxPool2d(ceil_mode=True)``
+    and the JAX GoogLeNet's ``_ceil_maxpool`` do."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), k, stride or k, padding,
+                     ceil_mode=ceil_mode)
+    return y.permute(0, 2, 3, 1)
 
 
-def decode(x, pairs, training: bool) -> torch.Tensor:
+def decode(x, pairs) -> torch.Tensor:
     """The UNet ``DecodeBlock`` arithmetic: for each (conv, bn) pair,
     conv3x3 -> ReLU -> BN (the reference's swapped ReLU/BN order), BN on
-    batch statistics (updating the running ones) when ``training``, on the
-    running statistics otherwise."""
-    norm = batch_norm_train if training else batch_norm_eval
+    batch statistics (updating the running ones) in training, on the
+    running statistics otherwise (:func:`batch_norm`)."""
     for conv, bn in pairs:
-        x = norm(torch.relu(conv_nhwc(x, conv, padding=1)), bn)
+        x = batch_norm(torch.relu(conv_nhwc(x, conv, padding=1)), bn)
     return x
 
 
@@ -215,8 +233,7 @@ class DecodeBlock(nn.Module):
         self.bn2 = nn.BatchNorm2d(features)
 
     def decode(self, x: torch.Tensor) -> torch.Tensor:
-        return decode(x, ((self.conv1, self.bn1), (self.conv2, self.bn2)),
-                      self.training)
+        return decode(x, ((self.conv1, self.bn1), (self.conv2, self.bn2)))
 
     forward = decode
 

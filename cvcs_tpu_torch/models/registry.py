@@ -1,7 +1,8 @@
 """Model registry (port of ``cvcs_tpu/models/registry.py``): config names
--> model constructors, with the typed model protocol. The Swin, UNet and
-SegFormer families are ported; every other name of the JAX registry
-raises and names the ROADMAP item that will port it."""
+-> model constructors, with the typed model protocol. Every name of the
+JAX registry is ported: the Swin, UNet, DeepLab and SegFormer families.
+"Ensemble" is assembled from member checkpoints by
+``cli/common.py`` ``build_ensemble``, not built here."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 
 from cvcs_tpu_torch.core.device import resolve_device
 from cvcs_tpu_torch.models.blocks import init_weights
+from cvcs_tpu_torch.models.deeplab import DeepLabV3
 from cvcs_tpu_torch.models.segformer import MIT_B0, MIT_B1, MIT_B3, SegFormer
 from cvcs_tpu_torch.models.swin import SwinUNet
 from cvcs_tpu_torch.models.unet import unet, unet_v2
@@ -53,6 +55,26 @@ MODEL_REGISTRY: dict[str, ModelSpec] = {
         "Unetv2S2D",
         lambda num_classes, **kw: unet_v2(num_classes, stem="s2d", **kw),
         stride_product=32),
+    "Resnet101": ModelSpec(
+        "Resnet101",
+        lambda num_classes, **kw: DeepLabV3(num_classes, "resnet101", **kw),
+        wrapper=True),
+    "Resnet50": ModelSpec(
+        "Resnet50",
+        lambda num_classes, **kw: DeepLabV3(num_classes, "resnet50", **kw),
+        wrapper=True),
+    "MobileNet": ModelSpec(
+        "MobileNet",
+        lambda num_classes, **kw: DeepLabV3(num_classes, "mobilenet", **kw),
+        wrapper=True),
+    "MobileNetGoogle": ModelSpec(
+        "MobileNetGoogle",
+        lambda num_classes, **kw: DeepLabV3(num_classes, "googlenet", **kw),
+        wrapper=True),
+    "MobileNetResnet18": ModelSpec(
+        "MobileNetResnet18",
+        lambda num_classes, **kw: DeepLabV3(num_classes, "resnet18", **kw),
+        wrapper=True),
     "SegformerMod": ModelSpec(
         "SegformerMod",
         lambda num_classes, **kw: SegFormer(num_classes, MIT_B3, **kw),
@@ -67,26 +89,17 @@ MODEL_REGISTRY: dict[str, ModelSpec] = {
         wrapper=True, stride_product=4),
 }
 
-# the JAX registry's other names -> the ROADMAP item that ports them
-NOT_YET_PORTED = {
-    "Resnet101": "Queue 1 item 9 (DeepLab family)",
-    "Resnet50": "Queue 1 item 9 (DeepLab family)",
-    "MobileNet": "Queue 1 item 9 (DeepLab family)",
-    "MobileNetGoogle": "Queue 1 item 9 (DeepLab family)",
-    "MobileNetResnet18": "Queue 1 item 9 (DeepLab family)",
-    "Ensemble": "Queue 1 item 10 (Ensemble and ViT)",
-}
-
 
 def build_model(name: str, num_classes: int, *, device=None, seed: int = 0,
                 **kw: Any) -> tuple[torch.nn.Module, ModelSpec]:
     """Build a zoo model by config name, seeded-initialised, in eval mode,
     on ``device`` (the card unless the CPU is asked for). Like the JAX
     registry, ``num_classes`` counts the background class."""
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"net {name!r} is not yet ported to cvcs_tpu_torch; see "
-            f"ROADMAP.md {NOT_YET_PORTED[name]}")
+    if name == "Ensemble":
+        raise ValueError(
+            "Ensemble is assembled from member checkpoints; use "
+            "cvcs_tpu_torch.cli.common.build_ensemble (net: Ensemble with "
+            "ensemble_config in an evaluate, predict or serve config)")
     if name not in MODEL_REGISTRY:
         raise ValueError(
             f"unknown net {name!r}; available: {sorted(MODEL_REGISTRY)}")

@@ -37,10 +37,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cvcs_tpu_torch.models.blocks import (SeededDropout, batch_norm_eval,
-                                          batch_norm_train, conv_nhwc,
-                                          conv_transpose_nhwc, layer_norm,
-                                          linear)
+from cvcs_tpu_torch.models.blocks import (SeededDropout, batch_norm,
+                                          conv_nhwc, conv_transpose_nhwc,
+                                          layer_norm, linear)
 from cvcs_tpu_torch.ops.resize import resize_bilinear
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -214,8 +213,7 @@ class SegFormerHead(nn.Module):
             proj.append(y)
         y = conv_nhwc(torch.cat(proj[::-1], dim=-1), self.linear_fuse,
                       padding=0)
-        norm = batch_norm_train if self.training else batch_norm_eval
-        y = self.dropout(torch.relu(norm(y, self.batch_norm)))
+        y = self.dropout(torch.relu(batch_norm(y, self.batch_norm)))
         return conv_nhwc(y, self.classifier, padding=0)
 
 

@@ -63,7 +63,7 @@ class _DecodeLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lay = self.layer
-        return decode(x, ((lay[0], lay[2]), (lay[3], lay[5])), self.training)
+        return decode(x, ((lay[0], lay[2]), (lay[3], lay[5])))
 
 
 class UNet(nn.Module):

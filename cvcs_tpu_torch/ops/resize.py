@@ -3,11 +3,11 @@
 ``jax.image.resize``'s bilinear method uses half-pixel centres and, when it
 shrinks a map, a triangle filter widened by the scale (antialiasing);
 ``F.interpolate(mode="bilinear", align_corners=False, antialias=True)``
-computes the same. Bilinear resizes run in f32 and cast back to the
-input's dtype, as the JAX functions do. ``resize_nearest`` is
-``jax.image.resize``'s nearest method (``F.interpolate``'s
-``"nearest-exact"`` rule), written as a gather so that integer label maps
-keep their dtype.
+computes the same. Bilinear resizes run in f32 (f64 for an f64 input)
+and cast back to the input's dtype, as the JAX functions do.
+``resize_nearest`` is ``jax.image.resize``'s nearest method
+(``F.interpolate``'s ``"nearest-exact"`` rule), written as a gather so
+that integer label maps keep their dtype.
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ import torch.nn.functional as F
 
 def resize_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     """NHWC bilinear resize to an explicit (H, W)."""
-    y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=tuple(size),
+    wide = torch.promote_types(x.dtype, torch.float32)
+    y = F.interpolate(x.permute(0, 3, 1, 2).to(wide), size=tuple(size),
                       mode="bilinear", align_corners=False, antialias=True)
     return y.permute(0, 2, 3, 1).to(x.dtype)
 

@@ -1,7 +1,8 @@
 """Train state (port of ``cvcs_tpu/train/state.py``): the model, whose
 parameters (f32) and BatchNorm running statistics it holds, the
-optimizer with its state, the step count, and the dropout seed (the JAX
-trainer's ``dropout_key``, ``seed ^ 0xD0``).
+optimizer with its state, the step count, the dropout seed (the JAX
+trainer's ``dropout_key``, ``seed ^ 0xD0``), and the parameters the loss
+does not reach, which ``train/step.py`` finds at the first step.
 
 PyTorch updates in place, so the state is a mutable holder where the JAX
 package threads an immutable pytree through a donated jitted step."""
@@ -21,6 +22,7 @@ class TrainState:
     optimizer: OptimizerBundle
     step: int = 0
     dropout_seed: int = 0xD0              # seed ^ 0xD0, for seed 0
+    unused: list | None = dataclasses.field(default=None, repr=False)
 
 
 def param_count(model: nn.Module) -> int:

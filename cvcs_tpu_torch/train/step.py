@@ -12,7 +12,12 @@ and updates its running statistics per micro-batch, the gradients of the
 micro losses are summed and then divided by N (one optimizer update), and
 the reported loss is the mean of the micro losses.
 
-Dropout (SegFormer's head) draws from generators seeded from
+Every parameter is decayed and has its momentum traced at every step, as
+optax does, including a parameter the loss does not reach (the DeepLab
+backbones' unread ``aux_layer``): torch's SGD and Adam skip a parameter
+whose ``.grad`` is None, so those get a zero gradient first.
+
+Dropout (SegFormer's and DeepLab's heads) draws from generators seeded from
 ``(state.dropout_seed, state.step)`` at the start of each train step, the
 port of the JAX step's ``fold_in(dropout_key, step)``; micro-batches draw
 in turn. The statistics refresh draws from seed 0, as the JAX one does;
@@ -27,6 +32,19 @@ import torch
 
 from cvcs_tpu_torch.models.blocks import seed_dropout
 from cvcs_tpu_torch.train.state import TrainState
+
+
+def zero_unused_grads(state: TrainState) -> None:
+    """Give every trainable parameter that received no gradient a zero
+    one. The set is taken at the state's first step (the zoo's graphs do
+    not change from step to step), so later steps visit only it."""
+    if state.unused is None:
+        state.unused = [p for group in state.optimizer.opt.param_groups
+                        for p in group["params"]
+                        if p.requires_grad and p.grad is None]
+    for p in state.unused:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
 
 
 @contextlib.contextmanager
@@ -73,6 +91,7 @@ def train_step(state: TrainState, loss_fn, image, mask, *, accum: int = 1,
                 if p.grad is not None:
                     p.grad.div_(accum)
             loss = loss / accum
+    zero_unused_grads(state)
     opt.step()
     state.step += 1
     return loss

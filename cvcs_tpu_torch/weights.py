@@ -1,13 +1,16 @@
-"""Carry JAX SwinUNet, UNet and SegFormer variables into the port.
+"""Carry JAX SwinUNet, UNet, DeepLabV3 and SegFormer variables into the
+port.
 
-:func:`swin_state_dict`, :func:`unet_state_dict` and
-:func:`segformer_state_dict` turn the JAX parameter tree plus
-``batch_stats`` (nested dicts of numpy arrays, flax module names) into the
-port's ``state_dict`` under the torch names — the same names and values
-that ``cvcs_tpu.utils.torch_export.export_swin``, ``export_unet`` and
-``export_segformer`` write, so either source loads with ``strict=True``:
+:func:`swin_state_dict`, :func:`unet_state_dict`,
+:func:`deeplab_state_dict` and :func:`segformer_state_dict` turn the JAX
+parameter tree plus ``batch_stats`` (nested dicts of numpy arrays, flax
+module names) into the port's ``state_dict`` under the torch names — the
+same names and values that ``cvcs_tpu.utils.torch_export.export_swin``,
+``export_unet``, ``export_deeplab`` and ``export_segformer`` write, so
+either source loads with ``strict=True``:
 
-* conv kernels HWIO -> OIHW;
+* conv kernels HWIO -> OIHW (a depthwise (kh, kw, 1, C) -> (C, 1, kh,
+  kw));
 * Dense kernels transposed ((in, out) -> (out, in));
 * flax ConvTranspose kernels transposed (kh, kw, in, out) ->
   (in, out, kh, kw) AND spatially flipped (flax does not flip);
@@ -72,6 +75,17 @@ class _Writer:
         self.sd[f"{name}.running_var"] = _f32(st["var"])
         self.sd[f"{name}.num_batches_tracked"] = torch.tensor(
             0, dtype=torch.int64)
+
+    def wbn(self, path, name):
+        """A BatchNorm inside a JAX ``_BN`` wrapper (``BatchNorm_0``)."""
+        self.bn(path + ("BatchNorm_0",), name)
+
+    def has(self, path) -> bool:
+        try:
+            _node(self.params, path)
+        except KeyError:
+            return False
+        return True
 
 
 def swin_state_dict(variables: dict, depths=(2, 2, 6, 2)) -> dict:
@@ -139,6 +153,129 @@ def unet_state_dict(variables: dict, upsample: str = "transpose") -> dict:
     return w.sd
 
 
+_RESNET_STAGES = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3),
+                  "resnet18": (2, 2, 2, 2)}
+
+
+def _resnet(w: _Writer, root: tuple, arch: str) -> None:
+    """torchvision ``resnet*`` names under ``backbone.``."""
+    w.conv(root + ("Conv_0",), "backbone.conv1")
+    w.wbn(root + ("_BN_0",), "backbone.bn1")
+    block, n_convs = (("BasicBlock", 2) if arch == "resnet18"
+                      else ("Bottleneck", 3))
+    idx = 0
+    for stage, n_blocks in enumerate(_RESNET_STAGES[arch]):
+        for b in range(n_blocks):
+            base = f"backbone.layer{stage + 1}.{b}"
+            path = root + (f"{block}_{idx}",)
+            for c in range(n_convs):
+                w.conv(path + (f"Conv_{c}",), f"{base}.conv{c + 1}")
+                w.wbn(path + (f"_BN_{c}",), f"{base}.bn{c + 1}")
+            if w.has(path + (f"Conv_{n_convs}",)):   # projection shortcut
+                w.conv(path + (f"Conv_{n_convs}",), f"{base}.downsample.0")
+                w.wbn(path + (f"_BN_{n_convs}",), f"{base}.downsample.1")
+            idx += 1
+
+
+def _mobilenet(w: _Writer, root: tuple) -> None:
+    """torchvision MobileNetV3-Large ``features`` names under
+    ``backbone.``."""
+    from cvcs_tpu_torch.models.mobilenet import LARGE_DILATED
+
+    w.conv(root + ("Conv_0",), "backbone.0.0")
+    w.wbn(root + ("_BN_0",), "backbone.0.1")
+    for i, cfg in enumerate(LARGE_DILATED):
+        base = f"backbone.{i + 1}.block"
+        path = root + (f"InvertedResidual_{i}",)
+        k = c = 0        # the torch layer index, the flax Conv_/_BN_ index
+        for _ in range(1 if i == 0 else 2):         # [expand,] depthwise
+            w.conv(path + (f"Conv_{c}",), f"{base}.{k}.0")
+            w.wbn(path + (f"_BN_{c}",), f"{base}.{k}.1")
+            k, c = k + 1, c + 1
+        if cfg.use_se:
+            se = path + ("SqueezeExcite_0",)
+            w.conv(se + ("Conv_0",), f"{base}.{k}.fc1")
+            w.conv(se + ("Conv_1",), f"{base}.{k}.fc2")
+            k += 1
+        w.conv(path + (f"Conv_{c}",), f"{base}.{k}.0")
+        w.wbn(path + (f"_BN_{c}",), f"{base}.{k}.1")
+    w.conv(root + ("Conv_1",), "backbone.16.0")
+    w.wbn(root + ("_BN_1",), "backbone.16.1")
+
+
+_GOOGLENET_BLOCKS = ("inception3a", "inception3b", "inception4a",
+                     "inception4b", "inception4c", "inception4d",
+                     "inception4e")
+_GOOGLENET_BRANCHES = ("branch1", "branch2.0", "branch2.1", "branch3.0",
+                       "branch3.1", "branch4.1")
+
+
+def _googlenet(w: _Writer, root: tuple) -> None:
+    """torchvision ``googlenet`` names (``export_googlenet``'s) and the
+    reference's ``out_layer``/``aux_layer``, under ``backbone.``."""
+
+    def basic(path, name):
+        w.conv(path + ("Conv_0",), f"backbone.{name}.conv")
+        w.bn(path + ("BatchNorm_0",), f"backbone.{name}.bn")
+
+    for i in range(3):
+        basic(root + (f"BasicConv2d_{i}",), f"conv{i + 1}")
+    for i, blk in enumerate(_GOOGLENET_BLOCKS):
+        for j, branch in enumerate(_GOOGLENET_BRANCHES):
+            basic(root + (f"Inception_{i}", f"BasicConv2d_{j}"),
+                  f"{blk}.{branch}")
+    w.conv(root + ("Conv_0",), "backbone.out_layer")
+    w.conv(root + ("Conv_1",), "backbone.aux_layer")
+
+
+def deeplab_state_dict(variables: dict, backbone: str = "resnet101") -> dict:
+    """JAX DeepLabV3 ``{"params", "batch_stats"}`` -> port state dict under
+    torchvision's ``deeplabv3_*`` names: for ``resnet101``, ``resnet50``
+    and ``mobilenet`` the names and values ``export_deeplab`` writes; for
+    ``googlenet`` the trunk under ``export_googlenet``'s names plus
+    ``backbone.out_layer``/``backbone.aux_layer``; for ``resnet18`` the
+    trunk under torchvision's ``resnet18`` names plus the adapter's
+    ``backbone.upsample`` (the transposed conv), ``backbone.out_layer``
+    and ``backbone.aux_layer``."""
+    w = _Writer(variables)
+    if backbone in ("resnet101", "resnet50"):
+        _resnet(w, ("ResNet_0",), backbone)
+    elif backbone == "mobilenet":
+        _mobilenet(w, ("MobileNetV3Backbone_0",))
+    elif backbone == "googlenet":
+        _googlenet(w, ("GoogLeNetBackbone_0",))
+    elif backbone == "resnet18":
+        root = ("_ResNet18Adapter_0",)
+        _resnet(w, root + ("ResNet_0",), "resnet18")
+        w.convt(root + ("ConvTranspose_0",), "backbone.upsample")
+        w.conv(root + ("Conv_0",), "backbone.out_layer")
+        w.conv(root + ("Conv_1",), "backbone.aux_layer")
+    else:
+        raise ValueError(f"unknown DeepLab backbone {backbone!r}")
+    head = ("DeepLabHead_0",)
+    w.sd.update(aspp_state_dict(variables, head + ("ASPP_0",),
+                                "classifier.0."))
+    w.conv(head + ("Conv_0",), "classifier.1")
+    w.wbn(head + ("_BN_0",), "classifier.2")
+    w.conv(head + ("Conv_1",), "classifier.4")
+    return w.sd
+
+
+def aspp_state_dict(variables: dict, path: tuple = (),
+                    prefix: str = "") -> dict:
+    """The JAX ``ASPP`` at ``path`` of ``variables`` (the root: an ASPP
+    alone) -> torchvision's ``ASPP`` names after ``prefix``."""
+    w = _Writer(variables)
+    for i in range(4):
+        w.conv(path + (f"Conv_{i}",), f"{prefix}convs.{i}.0")
+        w.wbn(path + (f"_BN_{i}",), f"{prefix}convs.{i}.1")
+    w.conv(path + ("Conv_4",), f"{prefix}convs.4.1")
+    w.wbn(path + ("_BN_4",), f"{prefix}convs.4.2")
+    w.conv(path + ("Conv_5",), f"{prefix}project.0")
+    w.wbn(path + ("_BN_5",), f"{prefix}project.1")
+    return w.sd
+
+
 def segformer_state_dict(variables: dict, depths=(3, 4, 18, 3),
                          sr_ratios=(8, 4, 2, 1)) -> dict:
     """JAX SegFormer ``{"params", "batch_stats"}`` -> port state dict under
@@ -185,8 +322,9 @@ def segformer_state_dict(variables: dict, depths=(3, 4, 18, 3),
 
 
 def load_jax_variables(model, variables: dict):
-    """Load JAX variables into a port ``SwinUNet``, ``UNet`` or
-    ``SegFormer`` (strict)."""
+    """Load JAX variables into a port ``SwinUNet``, ``UNet``,
+    ``DeepLabV3`` or ``SegFormer`` (strict)."""
+    from cvcs_tpu_torch.models.deeplab import DeepLabV3
     from cvcs_tpu_torch.models.segformer import SegFormer
     from cvcs_tpu_torch.models.swin import SwinUNet
     from cvcs_tpu_torch.models.unet import UNet
@@ -198,6 +336,8 @@ def load_jax_variables(model, variables: dict):
                                   model.config.sr_ratios)
     elif isinstance(model, UNet):
         sd = unet_state_dict(variables, model.upsample)
+    elif isinstance(model, DeepLabV3):
+        sd = deeplab_state_dict(variables, model.backbone_name)
     else:
         raise TypeError(f"no JAX weight bridge for {type(model).__name__}")
     model.load_state_dict(sd, strict=True)

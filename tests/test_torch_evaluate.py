@@ -14,7 +14,7 @@ CPU.
   package does and returns the same dict; ``silent`` prints nothing.
 * ``plot_confusion`` and ``plot_priors`` write their files (matplotlib).
 * With no card and no ``device: cpu`` the entry point raises, as do
-  ``mesh`` and ``net: Ensemble``.
+  ``mesh`` and ``load_context`` (not yet ported).
 """
 
 from pathlib import Path
@@ -130,5 +130,5 @@ def test_evaluate_refuses(tmp_path):
             tevaluate.evaluate(cfg)
     with pytest.raises(NotImplementedError, match="item 14"):
         tevaluate.evaluate(dict(cfg, device="cpu", mesh={"data": 2}))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tevaluate.evaluate(dict(cfg, device="cpu", net="Ensemble"))
+    with pytest.raises(NotImplementedError, match="item 4"):
+        tevaluate.evaluate(dict(cfg, device="cpu", load_context=True))

@@ -131,5 +131,5 @@ def test_unported_paths_raise(tmp_path):
                 max_polls=1)
     with pytest.raises(NotImplementedError, match="multi-device"):
         serve_cli.serve(dict(base, mesh={"data": 2}))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        serve_cli.serve(dict(base, net="Resnet50"))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        serve_cli.serve(dict(base, fullconv_bands=2))
