@@ -18,7 +18,10 @@ Phases (any failure raises and the script exits non-zero):
    plan equal to ``band_plan``'s; K3 and K4 (fused weighted
    cross-entropy forward sums and backward) at the Unetv2 recipe step's
    logits and at a ragged size; K1's, K2's (bf16 and f32), K3's and K4's
-   repeats on the same inputs bit-equal;
+   repeats on the same inputs bit-equal; K1 also at the four stage maps
+   of a fullconv band (1824 x 7200 at batch 1: non-square, 12,825 windows
+   at stage 1, pad and region masks) and at a chunked batch of 16 blocks
+   sharing one mask;
 4. the serving path: full-width SwinUnet (random weights from a fixed
    seed) segments one full-size 6800 x 7200 GID15-like scene
    (``predict_scene``, p 224, border correction 256, 128 windows per
@@ -36,7 +39,17 @@ Phases (any failure raises and the script exits non-zero):
    full-width SegformerMod (MiT-B3, 47,257,600 parameters, checked), and
    the DeepLab members of ``configs/ensemble_test.yaml``, Resnet101 and
    MobileNet (58,629,712 and 11,024,192 parameters, checked), each with
-   one forward timed and traced;
+   one forward timed and traced. Then the band paths on the same scene
+   (seed 0, bf16, bands of 8 tile rows, each run once to warm and once
+   counted, with tiles/s and peak memory beside the window path's):
+   SwinUnet streamed (K1 12 times a forward), fullconv bands (48), the
+   device-resident variant (equal bit for bit) and its 4 x 8-tile block
+   grid, one band forward timed and traced; f32 streamed labels equal to
+   the window path's, f32 fullconv labels through K1 and through the
+   plain attention on >= 99.9%; the stage-1 mask's host cost;
+   ``cli.esa`` at p 512 on a 2600 x 3100 raster (K1 on one forward);
+   Unetv2 streamed (the f32 rule) and fullconv, Resnet101 fullconv and
+   SegformerMod's 2 x 4-tile block grid;
 5. the training path: ``python -m cvcs_tpu_torch.cli.train``'s ``main``
    trains full-width SwinUnet with the recipe's geometry (p 224, batch
    10, wCEL with ignore_background, SGD2, bf16, random_shift,
@@ -81,10 +94,12 @@ Phases (any failure raises and the script exits non-zero):
    Resnet101 labels against its f32 ones; one f32 Resnet101 step through
    K3/K4 against one through the eager wCEL by the U-Net rule; one SGD2
    step on MobileNetGoogle decays its unread ``aux_layer`` as optax does;
-7. times (CUDA events, after warm-up; K3 and K4 also their traced device
+7. in a process of its own (a fresh profiler: see ``phase7``), times
+   (CUDA events, after warm-up; K3 and K4 also their traced device
    time) of each kernel beside its bound, its plain version and a library
-   yardstick; K1 both at the serving shapes (per forward) and at the p-224
-   training shapes (per train step); for K1 and K2 also three op calls
+   yardstick; K1 at the serving shapes (per forward), at the p-224
+   training shapes (per train step) and at a fullconv band's (per band
+   forward); for K1 and K2 also three op calls
    traced, split by CUDA kernel (each kernel's time over the launches the
    trace recorded), with the GEMMs' achieved TFLOP/s; K4 and
    K5 beside their first designs, in turns (old, new, new, old) and
@@ -93,7 +108,8 @@ Phases (any failure raises and the script exits non-zero):
    split into K5, the uint8 rounding and the masks' gather.
 
 The last two lines are a JSON object of per-kernel numbers and the
-result line ``{"ok": true, "device": {...}}``.
+result line ``{"ok": true, "device": {...}}``; before them, the
+seconds the run took and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -130,6 +146,33 @@ K1_CASES = [
 # K1 launches of one SwinUnet forward at bc 256: (case, launches)
 K1_PER_FORWARD = [("s1", 1), ("s1_shift", 1), ("s2", 1), ("s2_shift", 1),
                   ("s3", 3), ("s3_shift", 3), ("s4", 2)]
+# K1 at the four stage maps of one fullconv band (8 tile rows at p 224 +
+# a halo of 16: 1824 x 7200 pixels, batch 1), where Hp and h0 are
+# (rows, cols): 456 x 1800 unpadded (12,825 windows), 228 x 900 -> 232 x
+# 904, 114 x 450 -> 120 x 456 and 57 x 225 -> 64 x 232, each unshifted
+# and shifted; from stage 2 on the pad mask joins the region mask
+K1_BAND_CASES = [
+    ("b1", (456, 1800), 96, 3, 8, (456, 1800), 0),
+    ("b1_shift", (456, 1800), 96, 3, 8, (456, 1800), 4),
+    ("b2", (232, 904), 192, 6, 8, (228, 900), 0),
+    ("b2_shift", (232, 904), 192, 6, 8, (228, 900), 4),
+    ("b3", (120, 456), 384, 12, 8, (114, 450), 0),
+    ("b3_shift", (120, 456), 384, 12, 8, (114, 450), 4),
+    ("b4", (64, 232), 768, 24, 8, (57, 225), 0),
+    ("b4_shift", (64, 232), 768, 24, 8, (57, 225), 4),
+]
+K1_PER_BAND = [("b1", 1), ("b1_shift", 1), ("b2", 1), ("b2_shift", 1),
+               ("b3", 3), ("b3_shift", 3), ("b4", 1), ("b4_shift", 1)]
+# a chunked fullconv forward: 16 blocks of 2 x 8 tiles (480 x 1824), one
+# (nWin, T, T) mask shared by the batch; stage 2 (60 x 228 -> 64 x 232),
+# shifted, pad and region masks
+K1_CHUNK_CASE = ("c2_shift", (64, 232), 192, 6, 8, (60, 228), 4)
+B_CHUNK_BLOCKS = 16
+
+
+def hw(v) -> tuple[int, int]:
+    """A case's map size: an int for a square map, else (rows, cols)."""
+    return (v, v) if isinstance(v, int) else tuple(v)
 
 
 def log(*a):
@@ -142,6 +185,10 @@ def gpu_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def since(t0: float) -> str:
+    return f"{time.perf_counter() - t0:.1f} s in"
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -162,16 +209,17 @@ def k1_inputs(case, dtype, seed=0, batch=B):
     from cvcs_tpu_torch.models.swin import attn_bias
 
     _, hp, c, heads, win, h0, shift = case
+    (hp, wp), (h0, w0) = hw(hp), hw(h0)
     g = torch.Generator().manual_seed(seed)
 
     def rnd(*shape, std=1.0):
         return (torch.randn(shape, generator=g) * std).cuda()
 
-    x = rnd(batch, hp, hp, c).to(dtype)
+    x = rnd(batch, hp, wp, c).to(dtype)
     args = [x, 1 + rnd(c, std=0.1), rnd(c, std=0.1),
             rnd(c, 3 * c, std=c ** -0.5), rnd(3 * c, std=0.02),
             rnd(c, c, std=c ** -0.5), rnd(c, std=0.02)]
-    bias = attn_bias(hp, hp, h0, h0, win, shift, x.device)
+    bias = attn_bias(hp, wp, h0, w0, win, shift, x.device)
     return args, bias, dict(win=win, heads=heads)
 
 
@@ -179,10 +227,11 @@ def k1_bound(case, dtype, masked: bool, batch=B) -> tuple[float, float]:
     """(ms the bytes take at the memory rate, ms the operations take at
     the peak rate): each input read once, each output written once."""
     _, hp, c, _, win, _, _ = case
+    hp, wp = hw(hp)
     s = torch.finfo(dtype).bits // 8
-    n = batch * hp * hp
+    n = batch * hp * wp
     t = win * win
-    nwin = (hp // win) ** 2
+    nwin = (hp // win) * (wp // win)
     nbytes = 2 * n * c * s + 4 * c * c * s + (nwin * t * t * 4 if masked else 0)
     flops = 8 * n * c * c + 4 * n * t * c
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
@@ -207,15 +256,16 @@ def k1_library(x, ln_s, ln_b, wqkv, bqkv, wout, bout, bias, *, win, heads):
                         win, hp, wp)
 
 
-def check_k1() -> float:
+def check_k1(cases=K1_CASES, batch=B) -> float:
     """K1 vs its plain version at every case, bf16 and f32; returns the
-    largest bf16 error at the main path's stage shapes."""
+    largest bf16 error at the main path's stage shapes (names s*; every
+    case of another list)."""
     from cvcs_tpu_torch.ops import swin_attn
 
     worst = 0.0
-    for case in K1_CASES:
+    for case in cases:
         for dtype in (torch.bfloat16, torch.float32):
-            args, bias, kw = k1_inputs(case, dtype)
+            args, bias, kw = k1_inputs(case, dtype, batch=batch)
             got = swin_attn.swin_window_attention(*args, bias, **kw)
             torch.cuda.synchronize()
             want = swin_attn.swin_window_attention_plain(*args, bias, **kw)
@@ -227,14 +277,16 @@ def check_k1() -> float:
             mean = (got.float() - want.float()).abs().mean().item()
             ok = (err <= TOL[dtype] * scale and same
                   and bool(torch.isfinite(got).all()))
-            log(f"  K1 {case[0]:>9} {str(dtype)[6:]:>8} B={B} Hp={case[1]} "
+            log(f"  K1 {case[0]:>9} {str(dtype)[6:]:>8} B={batch} "
+                f"Hp,Wp={hw(case[1])} h0,w0={hw(case[5])} "
                 f"C={case[2]} heads={case[3]} win={case[4]} "
                 f"mask={'none' if bias is None else 'yes'}: max_abs_err="
                 f"{err:.3e} mean={mean:.2e} tol={TOL[dtype] * scale:.3e}; "
                 f"repeat bit-equal: {same} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"K1 {case[0]} {dtype}: {err} > tol")
-            if dtype == torch.bfloat16 and case[0].startswith("s"):
+            if dtype == torch.bfloat16 and (cases is not K1_CASES
+                                            or case[0].startswith("s")):
                 worst = max(worst, err)
             del args, got, want, again
     return worst
@@ -244,14 +296,29 @@ def check_k1() -> float:
 LAUNCHES_PER_CALL = {"swin_attn_fwd_gemm": 2, "swin_bwd_gemm": 5}
 
 
-def kernel_split(fn, n: int = 3) -> dict:
+def phase7_profile(fn, **kw) -> dict | None:
+    """``device_profile`` for phase 7's splits, or None ("not measured")
+    when every trace came back empty: late in a run the profiler records
+    fewer and fewer device events (a third of the launches, then none at
+    all), and a split is a reading, not a check."""
+    try:
+        return device_profile(fn, **kw)
+    except RuntimeError as err:
+        log(f"      {err}: not measured")
+        return None
+
+
+def kernel_split(fn, n: int = 3) -> dict | None:
     """Device time per op call of each CUDA kernel that ``fn`` issues,
     traced over ``n`` calls, by kernel name (``swin_attn_fwd_gemm``, ...;
     ``other`` for PyTorch's own, the parameter casts): each kernel's
     traced time over the launches the trace recorded (it can drop some),
     times its launches per op call. ``other`` is divided by the calls
-    made, since its launches per call are not fixed by this script."""
-    prof = device_profile(lambda: [fn() for _ in range(n)])
+    made, since its launches per call are not fixed by this script.
+    None when the profiler recorded nothing."""
+    prof = phase7_profile(lambda: [fn() for _ in range(n)])
+    if prof is None:
+        return None
     out, counts = {}, {}
     for name, (ms, count) in prof["by_name"].items():
         m = re.search(r"(swin_\w+)", name)
@@ -266,7 +333,9 @@ def kernel_split(fn, n: int = 3) -> dict:
             for k, v in out.items()}
 
 
-def split_line(split: dict, gemm_key: str, gemm_flops: float) -> str:
+def split_line(split: dict | None, gemm_key: str, gemm_flops: float) -> str:
+    if split is None:
+        return "traced per call: not measured"
     gemm_ms = split.get(gemm_key, 0.0)
     tflops = gemm_flops / (gemm_ms * 1e-3) / 1e12 if gemm_ms else 0.0
     return ("traced per call: " + ", ".join(
@@ -297,7 +366,7 @@ def time_k1(cases=K1_CASES, per=K1_PER_FORWARD, batch=B,
         rows[name]["split"] = kernel_split(
             lambda: swin_attn.swin_window_attention(*args, bias, **kw))
         _, hp, c = cases[name][:3]
-        gemm_flops = 8 * batch * hp * hp * c * c
+        gemm_flops = 8 * batch * math.prod(hw(hp)) * c * c
         rows[name]["bound_ms"] = max(rows[name]["bytes_ms"],
                                      rows[name]["ops_ms"])
         swin_attn.launches = before     # timing launches are not the path's
@@ -313,7 +382,8 @@ def time_k1(cases=K1_CASES, per=K1_PER_FORWARD, batch=B,
              for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
                        "ops_ms")}
     below = [n for n, _ in per if rows[n]["ms"] < rows[n]["library_ms"]]
-    log(f"  K1 {what} (12 op calls, bf16, B={batch}): kernel "
+    log(f"  K1 {what} ({sum(n for _, n in per)} op calls, bf16, "
+        f"B={batch}): kernel "
         f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, composite "
         f"library {total['library_ms']:.3f} ms, bound "
         f"{total['bound_ms']:.4f} ms; below the library in "
@@ -592,11 +662,14 @@ def in_turns(old, new, iters: int = 10) -> dict:
     return dict(old_ms=(t[0] + t[3]) / 2, ms=(t[1] + t[2]) / 2, turns=t)
 
 
-def traced_split(fn, n: int = 10) -> dict:
+def traced_split(fn, n: int = 10) -> dict | None:
     """Device ms per launch of each CUDA kernel ``fn`` issues, traced over
     ``n`` calls, by kernel name: each kernel's traced time over the
-    launches the trace recorded, which can be fewer than ``n``."""
-    prof = device_profile(lambda: [fn() for _ in range(n)])
+    launches the trace recorded, which can be fewer than ``n``. None when
+    the profiler recorded nothing."""
+    prof = phase7_profile(lambda: [fn() for _ in range(n)])
+    if prof is None:
+        return None
     out, counts = {}, {}
     for name, (ms, count) in prof["by_name"].items():
         key = re.sub(r"\(.*$", "", name.replace("(anonymous namespace)::", "")
@@ -607,7 +680,13 @@ def traced_split(fn, n: int = 10) -> dict:
     return {k: out[k] / counts[k] for k in out}
 
 
-def split_text(split: dict) -> str:
+def split_sum(split: dict | None) -> float | None:
+    return None if split is None else sum(split.values())
+
+
+def split_text(split: dict | None) -> str:
+    if split is None:
+        return "not measured"
     return ", ".join(f"{k} {v:.4f}" for k, v in
                      sorted(split.items(), key=lambda kv: -kv[1]))
 
@@ -632,8 +711,8 @@ def time_k5(v1) -> dict:
         t = in_turns(old, new)
         t["split"] = traced_split(new)
         t["old_split"] = traced_split(old)
-        t["device_ms"] = sum(t["split"].values())
-        t["old_device_ms"] = sum(t["old_split"].values())
+        t["device_ms"] = split_sum(t["split"])
+        t["old_device_ms"] = split_sum(t["old_split"])
         nbytes = b * 224 * 224 * 3 * (1 + 4)
         t["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
         t["ops_ms"] = b * 224 * 224 * 3 * 12 / PEAK_FLOPS[torch.float32] * 1e3
@@ -810,7 +889,7 @@ def time_k3k4(v1) -> tuple[dict, dict]:
     k4["split"] = traced_split(lambda: fused_ce._bwd_launch(x, lab, w, g,
                                                             wsum))
     k4["old_split"] = traced_split(lambda: v1(x, lab, w, g, wsum))
-    k4["old_device_ms"] = sum(k4["old_split"].values())
+    k4["old_device_ms"] = split_sum(k4["old_split"])
     same = float((v1(x, lab, w, g, wsum)
                   - fused_ce._bwd_launch(x, lab, w, g, wsum)).abs().max())
     for r, key, fn in (
@@ -818,8 +897,9 @@ def time_k3k4(v1) -> tuple[dict, dict]:
             (k4, "K4", lambda: fused_ce._bwd_launch(x, lab, w, g, wsum))):
         # the events time of a back-to-back loop includes the wrapper's
         # host cost; the trace gives the kernels' own device time
-        r["device_ms"] = device_profile(
-            lambda: [fn() for _ in range(10)], per_launch=True)[key]
+        prof = phase7_profile(lambda: [fn() for _ in range(10)],
+                              per_launch=True)
+        r["device_ms"] = None if prof is None else prof[key]
     lib_loss = float(lib_fwd())
     k3_loss = float(fused_ce._fwd_launch(x, lab, w)[2])
     fused_ce.launches, fused_ce.bwd_launches = before  # not the path's
@@ -849,8 +929,9 @@ def time_k3k4(v1) -> tuple[dict, dict]:
             f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes "
             f"{r['bytes_ms']:.4f}, operations {r['ops_ms']:.4f}; kernel at "
             f"{r['bound_ms'] / r['ms'] * 100:.1f}% of bound); device time "
-            f"per launch {r['device_ms']:.4f} ms (traced, "
-            f"{r['bound_ms'] / r['device_ms'] * 100:.1f}% of bound)")
+            + ("per launch not measured" if r["device_ms"] is None else
+               f"per launch {r['device_ms']:.4f} ms (traced, "
+               f"{r['bound_ms'] / r['device_ms'] * 100:.1f}% of bound)"))
     return k3, k4
 
 
@@ -870,12 +951,13 @@ CONV_NAMES = ("xmma", "cudnn", "conv", "gemm", "cutlass", "nvjet", "dgrad",
               "wgrad")
 
 
-def device_profile(fn, attempts: int = 3, per_launch: bool = False) -> dict:
+def device_profile(fn, attempts: int = 6, per_launch: bool = False) -> dict:
     """Run ``fn`` under torch.profiler: device time by kernel name, the
     span from the first kernel's start to the last one's end, and the
     device's idle share of that span. A trace that holds no device event
-    at all (seen once in a run of many traces) is taken again, up to
-    ``attempts`` times in all, before this raises."""
+    at all is taken again after a pause, up to ``attempts`` times in all,
+    before this raises: on the H100 host empty traces come now and then,
+    and several in a row late in a long run (see ``phase7``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -899,6 +981,7 @@ def device_profile(fn, attempts: int = 3, per_launch: bool = False) -> dict:
             break
         log(f"  torch.profiler recorded no device time (trace {attempt} of "
             f"{attempts})")
+        time.sleep(0.5)
     else:
         raise RuntimeError("torch.profiler recorded no device time")
     spans.sort()
@@ -1138,6 +1221,248 @@ def unet_scene(result: dict, scene) -> None:
     result["unet_forward"] = forward_breakdown(model, "Unetv2")
     del model, seg, labels
     torch.cuda.empty_cache()
+
+
+# -- the band paths: streamed, fullconv, chunked fullconv, ESA -------------
+BAND_ROWS = 8                      # tile rows a band (1824 x 7200 with halo)
+MIN_STREAM_AGREEMENT = 0.9999      # f32 streamed vs window labels (see below)
+
+
+def run_timed(fn):
+    """``fn()``, the seconds from a synchronised start to a synchronised
+    end, and the peak device memory over it in GiB (statistics reset
+    just before)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def band_segmenter(name: str, dtype):
+    """A full-width ``name`` (random weights, seed 0) in the scene cells'
+    engine (p 224, bc 256, 128 windows a forward; fullconv halo 16)."""
+    from cvcs_tpu_torch.infer import InferenceConfig, SceneSegmenter
+    from cvcs_tpu_torch.models import build_model
+
+    model, spec = build_model(name, NC, seed=0, dtype=dtype)
+    return SceneSegmenter(model, InferenceConfig(
+        patch_size=224, border_correction=256, batch_tiles=128,
+        num_classes=NC), stride_product=spec.stride_product)
+
+
+def scene_path(name: str, path: str, fn, window_tps: float, k1: int = 0,
+               warm: bool = True, varied: bool = True):
+    """One whole-scene path on the full-size scene: a first run (``warm``:
+    new shapes, the mask cache), then one with the launch counters zeroed
+    just before and read just after, timed to its labels on the host or,
+    for a device map, on the device. Returns (host labels, numbers)."""
+    from cvcs_tpu_torch.infer.engine import labels_to_host
+
+    if warm:
+        fn()
+    reset_counts()
+    lab, secs, peak = run_timed(fn)
+    counts = kernel_counts()
+    lab = labels_to_host(lab)
+    classes = np.unique(lab)
+    log(f"  {name} {path}: labels {lab.shape} {lab.dtype}, {len(classes)} "
+        f"classes, 960 tiles in {secs:.3f} s = {960 / secs:.1f} tiles/s "
+        f"(window path {window_tps:.1f} in this run); peak memory "
+        f"{peak:.2f} GiB; hand-written kernel launches {counts} (K1 "
+        f"expected {k1})")
+    assert lab.shape == (6720, 7168) and lab.dtype == np.uint8
+    assert classes.max() < NC and (len(classes) > 1 or not varied)
+    assert counts["K1"] == k1, counts
+    assert not any(v for k, v in counts.items() if k != "K1"), counts
+    return lab, dict(tiles_per_s=960 / secs, seconds=secs, peak_gib=peak,
+                     launches=counts["K1"])
+
+
+def differ_line(what: str, a: np.ndarray, b: np.ndarray) -> float:
+    n = int((a != b).sum())
+    log(f"  {what}: {n} of {a.size} pixels differ "
+        f"({(1 - n / a.size) * 100:.4f}% agree)")
+    return 1 - n / a.size
+
+
+def streamed_rule(name: str, scene) -> float:
+    """f32 (TF32 off) streamed labels against the window path's on the
+    full-size scene: equal on every pixel, or on >= 99.99% with the count
+    printed (cuDNN may pick another algorithm for a band's ragged batch;
+    at 8 bands of 32 tile columns the batches are those of the window
+    path, so none is expected)."""
+    from cvcs_tpu_torch.infer.engine import labels_to_host
+
+    seg = band_segmenter(name, torch.float32)
+    want = labels_to_host(seg.predict_scene(scene))
+    got = seg.predict_scene_streamed(scene, BAND_ROWS)
+    agree = differ_line(f"{name} f32 streamed vs predict_scene", got, want)
+    assert agree >= MIN_STREAM_AGREEMENT
+    del seg
+    torch.cuda.empty_cache()
+    return agree
+
+
+def swin_band_paths(result: dict, scene) -> None:
+    """Full-width SwinUnet (seed 0, bf16) through the band paths on the
+    full-size scene: streamed (K1 12 times a forward, 8 forwards), fullconv
+    bands of 8 tile rows (4 band forwards: 48), the device-resident
+    variant (equal bit for bit) and its 4 x 8-tile block grid, one band
+    forward timed and traced; the f32 rules; the stage-1 mask's host
+    cost; then ``cli.esa`` at p 512 on a raster that is not tile-aligned."""
+    from PIL import Image
+
+    from cvcs_tpu_torch.cli import esa as esa_cli
+    from cvcs_tpu_torch.infer.engine import labels_to_host
+    from cvcs_tpu_torch.models import swin as swin_mod
+    from cvcs_tpu_torch.ops import swin_attn
+
+    out = {}
+    wtps = result["scene_tiles_per_s"]
+    seg = band_segmenter("SwinUnet", torch.bfloat16)
+    window, _, peak = run_timed(
+        lambda: labels_to_host(seg.predict_scene(scene)))
+    out["window_peak_gib"] = peak
+    lab, out["streamed"] = scene_path(
+        "SwinUnet", "predict_scene_streamed(band_rows=8)",
+        lambda: seg.predict_scene_streamed(scene, BAND_ROWS), wtps,
+        k1=12 * 8, warm=False)
+    log(f"  SwinUnet peak memory: predict_scene {peak:.2f} GiB, streamed "
+        f"{out['streamed']['peak_gib']:.2f} GiB")
+    differ_line("SwinUnet bf16 streamed vs predict_scene", lab, window)
+
+    # the mask's host cost: stage 1's region mask of a band, built in
+    # numpy and copied to the card once per geometry
+    dev = torch.device("cuda")
+    _, secs, _ = run_timed(lambda: swin_mod.attn_bias.__wrapped__(
+        456, 1800, 456, 1800, 8, 4, dev))
+    out["stage1_bias_build_ms"] = secs * 1e3
+    log(f"  stage-1 band mask (12,825 x 64 x 64 f32, 210 MB) built and "
+        f"copied in {secs * 1e3:.1f} ms")
+
+    fc, out["fullconv"] = scene_path(
+        "SwinUnet", "predict_scene_fullconv(band_rows=8)",
+        lambda: seg.predict_scene_fullconv(scene, BAND_ROWS), wtps, k1=48)
+    differ_line("SwinUnet bf16 fullconv vs window labels (not a rule: "
+                "other semantics)", fc, window)
+    dev_lab, out["fullconv_padded"] = scene_path(
+        "SwinUnet", "pad_scene_fullconv + predict_padded_fullconv",
+        lambda: seg.predict_padded_fullconv(
+            *seg.pad_scene_fullconv(scene), band_rows=BAND_ROWS),
+        wtps, k1=48)
+    assert np.array_equal(dev_lab, fc), "device-resident fullconv differs"
+    log("  predict_padded_fullconv equals predict_scene_fullconv bit for "
+        "bit")
+    _, out["fullconv_chunks"] = scene_path(
+        "SwinUnet", "predict_padded_fullconv(fullconv_chunks [4, 8])",
+        lambda: seg.predict_padded_fullconv(
+            *seg.pad_scene_fullconv(scene), band_rows=BAND_ROWS,
+            row_tiles=4, col_tiles=8), wtps, k1=48)
+
+    padded, _, _, halo = seg.pad_scene_fullconv(scene)
+    band = padded[None, :BAND_ROWS * 224 + 2 * halo]
+    del padded
+
+    def forward():
+        return seg._fullconv_forward(band, BAND_ROWS * 224, 7168, halo)
+
+    ms = cuda_ms(forward, iters=5, warmup=1)
+    prof = device_profile(forward)
+    out["band_forward"] = dict(ms=ms, kernel_ms=prof["kernel_ms"],
+                               span_ms=prof["span_ms"],
+                               idle_share=prof["idle_share"],
+                               conv_ms=prof["conv_ms"], k1_ms=prof["K1"])
+    log(f"  SwinUnet one fullconv band forward ({tuple(band.shape[1:3])}, "
+        f"bf16): {ms:.3f} ms (CUDA events); traced: kernels "
+        f"{prof['kernel_ms']:.3f} ms over {prof['span_ms']:.3f} ms, idle "
+        f"{prof['idle_share'] * 100:.1f}%, K1 {prof['K1']:.3f} ms = "
+        f"{prof['K1'] / prof['kernel_ms'] * 100:.1f}%, convolutions and "
+        f"GEMMs {prof['conv_ms']:.3f} ms")
+    for k, (t, n) in sorted(prof["by_name"].items(),
+                            key=lambda kv: -kv[1][0])[:6]:
+        log(f"    {t:9.3f} ms {n:4d}x {k[:90]}")
+    del seg, band
+    torch.cuda.empty_cache()
+
+    out["f32_streamed_agreement"] = streamed_rule("SwinUnet", scene)
+    seg = band_segmenter("SwinUnet", torch.float32)
+    reset_counts()
+    kern = seg.predict_scene_fullconv(scene, BAND_ROWS)
+    assert swin_attn.launches == 48, swin_attn.launches
+    swin_mod.swin_window_attention = swin_attn.swin_window_attention_plain
+    try:
+        plain = seg.predict_scene_fullconv(scene, BAND_ROWS)
+    finally:
+        swin_mod.swin_window_attention = swin_attn.swin_window_attention
+    agree = differ_line("SwinUnet f32 fullconv, kernel vs plain attention",
+                        kern, plain)
+    assert agree >= 0.999
+    out["f32_fullconv_agreement"] = agree
+    del seg
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = Path(tmp) / "esa_in.png", Path(tmp) / "esa.png"
+        Image.fromarray(synthetic_scene(2600, 3100, seed=5)).save(src)
+        reset_counts()
+        _, secs, peak = run_timed(lambda: esa_cli.run(dict(
+            image=str(src), net="SwinUnet", num_classes=15,
+            precision="bf16", out_image=str(dst))))
+        counts = kernel_counts()
+        got = np.asarray(Image.open(dst))
+        log(f"  cli.esa SwinUnet p 512 on 2600x3100: map {got.shape} in "
+            f"{secs:.2f} s (model build, decode and PNG included; 30 "
+            f"tiles), peak {peak:.2f} GiB; launches {counts} (K1 expected "
+            f"12: one forward)")
+        assert got.shape == (2560, 3072, 3) and counts["K1"] == 12
+        out["esa"] = dict(seconds=secs, peak_gib=peak, launches=counts["K1"])
+    result["swin_bands"] = out
+
+
+def other_band_paths(result: dict, scene) -> None:
+    """Unetv2 (the serve recipe's model): streamed against the window path
+    (the f32 rule) and fullconv bands of 8; Resnet101: fullconv bands of
+    8; SegformerMod: fullconv_chunks [2, 4] (blocks of 480 x 928: a full
+    1824 x 7200 band would give stage 1 a 820,800 x 12,825 score matrix)."""
+    from cvcs_tpu_torch.infer.engine import labels_to_host
+
+    out = {}
+    seg = band_segmenter("Unetv2", torch.bfloat16)
+    wtps = result["unet_scene_tiles_per_s"]
+    window = labels_to_host(seg.predict_scene(scene))
+    lab, out["unet_streamed"] = scene_path(
+        "Unetv2", "predict_scene_streamed(band_rows=8)",
+        lambda: seg.predict_scene_streamed(scene, BAND_ROWS), wtps,
+        warm=False)
+    differ_line("Unetv2 bf16 streamed vs predict_scene", lab, window)
+    _, out["unet_fullconv"] = scene_path(
+        "Unetv2", "predict_scene_fullconv(band_rows=8)",
+        lambda: seg.predict_scene_fullconv(scene, BAND_ROWS), wtps)
+    del seg
+    torch.cuda.empty_cache()
+    out["unet_f32_streamed_agreement"] = streamed_rule("Unetv2", scene)
+
+    seg = band_segmenter("Resnet101", torch.bfloat16)
+    _, out["resnet101_fullconv"] = scene_path(
+        "Resnet101", "predict_scene_fullconv(band_rows=8)",
+        lambda: seg.predict_scene_fullconv(scene, BAND_ROWS),
+        result["deeplab_scene"]["Resnet101"]["tiles_per_s"], varied=False)
+    del seg
+    torch.cuda.empty_cache()
+
+    seg = band_segmenter("SegformerMod", torch.bfloat16)
+    _, out["segformer_fullconv_chunks"] = scene_path(
+        "SegformerMod", "predict_padded_fullconv(fullconv_chunks [2, 4])",
+        lambda: seg.predict_padded_fullconv(
+            *seg.pad_scene_fullconv(scene), band_rows=BAND_ROWS,
+            row_tiles=2, col_tiles=4),
+        result["segformer_scene"]["tiles_per_s"], varied=False)
+    del seg
+    torch.cuda.empty_cache()
+    result["other_bands"] = out
 
 
 # -- the training path -----------------------------------------------------------
@@ -2397,6 +2722,37 @@ def kernel_entry(meta, launches, err, times, library, per, **extra) -> dict:
         **extra)
 
 
+def phase7(out_path: str) -> int:
+    """Phase 7, run as ``chip_smoke.py --phase7 <json>`` by
+    :func:`phase7_in_child`: the kernels' times, written as JSON. Late in
+    a long run torch.profiler records fewer and fewer device events (a
+    third of the launches, then none at all for K3/K4/K5 in full runs on
+    the H100, while a fresh process traced the same kernels in full), so
+    the traces are taken in a fresh process; the kernels are already
+    built."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    times = dict(k1=time_k1(),
+                 k1_train=time_k1(K2_CASES, K2_PER_STEP, B_TRAIN,
+                                  "per train step"),
+                 k1_band=time_k1(K1_BAND_CASES, K1_PER_BAND, 1,
+                                 "per fullconv band forward"),
+                 k2=time_k2())
+    v1_k4, v1_k5 = first_designs()
+    times["k5"] = time_k5(v1_k5)
+    times["k3"], times["k4"] = time_k3k4(v1_k4)
+    Path(out_path).write_text(json.dumps(times))
+    return 0
+
+
+def phase7_in_child() -> dict:
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "times.json"
+        subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--phase7", str(out)], check=True, timeout=900)
+        return json.loads(out.read_text())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2420,22 +2776,30 @@ def main() -> int:
         log(f"[2] built {name}.cu for sm_90a in {secs.get(name, 0):.1f} s: "
             + " | ".join(ptxas[:6]) + (" | ..." if len(ptxas) > 6 else ""))
 
-    log("[3] kernels vs plain versions on the card")
+    log(f"[3] kernels vs plain versions on the card ({since(t_start)})")
     k1_err = check_k1()
+    k1_band_err = check_k1(K1_BAND_CASES, batch=1)
+    k1_chunk_err = check_k1([K1_CHUNK_CASE], batch=B_CHUNK_BLOCKS)
     k2_err, k2_scaled = check_k2()
     k5_err = check_k5()
     ce_err = check_k3k4()
 
-    log("[4] serving path")
+    log(f"[4] serving path ({since(t_start)})")
     result: dict = {}
     scene = main_path(result)
     bf16_forward_check(result)
     unet_scene(result, scene)
     segformer_scene(result, scene)
     deeplab_scene(result, scene)
+    log(f"[4] band paths: streamed, fullconv, chunked fullconv, ESA "
+        f"({since(t_start)})")
+    swin_band_paths(result, scene)
+    log(f"[4] band paths of Unetv2, Resnet101 and SegformerMod "
+        f"({since(t_start)})")
+    other_band_paths(result, scene)
     del scene
 
-    log("[5] training path")
+    log(f"[5] training path ({since(t_start)})")
     with tempfile.TemporaryDirectory() as ckpts:
         ckpts = Path(ckpts)
         train_path(result)
@@ -2446,19 +2810,19 @@ def main() -> int:
             "SegformerMod")
         ensemble_path(result, ckpts)
 
-    log("[6] training correctness")
+    log(f"[6] training correctness ({since(t_start)})")
     train_correctness(result)
     unet_correctness(result)
     segformer_correctness(result)
     deeplab_correctness(result)
 
-    log("[7] times (CUDA events, mean of 10 after 2 warm-up)")
-    k1_times = time_k1()
-    k1_train = time_k1(K2_CASES, K2_PER_STEP, B_TRAIN, "per train step")
-    k2_times = time_k2()
-    v1_k4, v1_k5 = first_designs()
-    k5_times = time_k5(v1_k5)
-    k3_times, k4_times = time_k3k4(v1_k4)
+    log(f"[7] times (CUDA events, mean of 10 after 2 warm-up; "
+        f"{since(t_start)}), in a process of their own")
+    times = phase7_in_child()
+    k1_times, k1_train, k1_band = (times["k1"], times["k1_train"],
+                                   times["k1_band"])
+    k2_times, k5_times = times["k2"], times["k5"]
+    k3_times, k4_times = times["k3"], times["k4"]
 
     tl = result["train"]["launches"]
     ul = result["unet_train"]["launches"]
@@ -2473,16 +2837,44 @@ def main() -> int:
     ce_paths = {k: dict(unet_fused_epoch=ul[k], segformer_fused_epoch=sl[k],
                         resnet101_fused_epoch=rl[k])
                 for k in ("K3", "K4")}
+    sb = result["swin_bands"]
+    k1_paths = dict(window_scene=result["launches"],
+                    serve=result["serve_launches"],
+                    streamed=sb["streamed"]["launches"],
+                    fullconv=sb["fullconv"]["launches"],
+                    fullconv_padded=sb["fullconv_padded"]["launches"],
+                    fullconv_chunks=sb["fullconv_chunks"]["launches"],
+                    esa=sb["esa"]["launches"], swin_train=tl["K1"])
+
+    # what the per-geometry mask cache (models/swin.py attn_bias) holds on
+    # the card at the end of the run: the memory its entries free
+    from cvcs_tpu_torch.models import swin as swin_mod
+
+    entries = swin_mod.attn_bias.cache_info().currsize
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    swin_mod.attn_bias.cache_clear()
+    bias_cache_mb = (held - torch.cuda.memory_allocated()) / 1e6
+    log(f"  attn_bias cache at the end of the run: {entries} geometries, "
+        f"{bias_cache_mb:.1f} MB on the card")
     line = {"kernels": [
         kernel_entry(swin_attn.KERNEL, result["launches"], k1_err, k1_times,
                      "composite: F.layer_norm + F.linear + "
                      "F.scaled_dot_product_attention + F.linear",
                      "one SwinUnet forward at bc 256, 128 windows "
                      "(12 launches)", launches_train=tl["K1"],
+                     launches_by_path=k1_paths,
                      train_step=dict(per=f"one SwinUnet train step at p 224,"
                                      f" batch {B_TRAIN} (12 launches)",
                                      **k1_train["total"],
-                                     per_case=k1_train["per_case"])),
+                                     per_case=k1_train["per_case"]),
+                     band_forward=dict(per="one SwinUnet fullconv band "
+                                       "forward, 1824 x 7200, batch 1 (12 "
+                                       "launches)", **k1_band["total"],
+                                       per_case=k1_band["per_case"]),
+                     band_max_abs_err=k1_band_err,
+                     chunk_max_abs_err=k1_chunk_err,
+                     bias_cache=dict(entries=entries, mb=bias_cache_mb)),
         kernel_entry(swin_attn.BWD_KERNEL, tl["K2"], k2_err, k2_times,
                      "composite: autograd backward of F.layer_norm + "
                      "F.linear + F.scaled_dot_product_attention + F.linear",
@@ -2536,7 +2928,10 @@ def main() -> int:
         "deeplab_train": result["deeplab_train"],
         "deeplab_correctness": result["deeplab_correctness"],
         "ensemble": result["ensemble"],
+        "swin_bands": result["swin_bands"],
+        "other_bands": result["other_bands"],
         "seconds": time.perf_counter() - t_start}
+    log(f"chip_smoke: {line['seconds']:.1f} s from start to the result")
     log(smi)
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
@@ -2546,4 +2941,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase7"]:
+        sys.exit(phase7(sys.argv[2]))
     sys.exit(main())

@@ -16,15 +16,10 @@ from cvcs_tpu_torch.models import MODEL_REGISTRY, ModelSpec, build_model
 from cvcs_tpu_torch.models.ensemble import Ensemble, EnsembleMember
 from cvcs_tpu_torch.train.checkpoint import STATE, STATE_KEYS
 
-# config keys of paths the port does not run yet -> the ROADMAP item
+# config keys of paths the port does not run yet -> the ROADMAP item; a
+# config naming one raises (fullconv with a mesh raises with the mesh)
 UNPORTED_KEYS = {
     "mesh": "multi-device not yet ported (ROADMAP.md Queue 1 item 14)",
-    "fullconv_bands": "fullconv inference not yet ported "
-                      "(ROADMAP.md Queue 1 item 11)",
-    "fullconv_chunks": "fullconv inference not yet ported "
-                       "(ROADMAP.md Queue 1 item 11)",
-    "stream_rows": "streamed inference not yet ported "
-                   "(ROADMAP.md Queue 1 item 11)",
 }
 
 

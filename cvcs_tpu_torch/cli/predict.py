@@ -7,8 +7,15 @@ figures in ``output/`` and an optional stitched ``out_image``.
 majority vote (``tta`` is refused for it: a vote has no logits).
 ``range: [lb, ub]`` selects global patch indices (scene = index //
 tiles_per_scene); when a range covers at most a quarter of a scene and no
-stitched map is asked for, only the selected tiles are computed. The
-mesh, fullconv and streamed paths are not ported yet and raise.
+stitched map is asked for, only the selected tiles are computed.
+
+Whole scenes take one of three paths: the window path by default;
+``stream_rows: N`` runs it in bands of N tile rows (device memory
+O(band)); ``fullconv_bands: N`` forwards each band of N tile rows as one
+full convolution (no window overlap, no tile seams inside a band), and
+with ``fullconv_chunks: [r, k]`` each band as a batch of r x k-tile
+blocks of a scene kept on the device. ``mesh`` is not ported yet and
+raises.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ def predict(config: dict) -> None:
         tta=bool(config.get("tta")))
     seg = SceneSegmenter(model, infer_cfg, returns_logits=spec.returns_logits,
                          requires_context=spec.requires_context,
-                         device=device)
+                         stride_product=spec.stride_product, device=device)
 
     if config.get("range"):
         lb, ub = config["range"]
@@ -77,7 +84,7 @@ def predict(config: dict) -> None:
             print(f"Scene {s}: {len(sel)} patches -> {out_dir}", flush=True)
             continue
 
-        labels = seg.predict_scene(raw)
+        labels = scene_labels(seg, raw, config)
         if infer_cfg.mask_only:
             seg.export_patches(labels, out_dir, start_index=s * tpi,
                                keep=range(lb, ub))
@@ -92,6 +99,25 @@ def predict(config: dict) -> None:
                 out_path = stem.with_name(f"{stem.stem}_{s}{stem.suffix}")
             seg.export_map(labels, out_path)
         print(f"Scene {s}: {tpi} patches -> {out_dir}", flush=True)
+
+
+def scene_labels(seg: SceneSegmenter, raw, config: dict):
+    """One whole scene's labels by the path the config selects (a device
+    map from the window and chunked fullconv paths, a host uint8 map from
+    the banded ones; the exports take either)."""
+    if config.get("fullconv_bands"):
+        band_rows = int(config["fullconv_bands"])
+        chunks = config.get("fullconv_chunks")
+        if chunks:
+            padded, rows, cols, halo = seg.pad_scene_fullconv(raw)
+            return seg.predict_padded_fullconv(
+                padded, rows, cols, halo, band_rows=band_rows,
+                row_tiles=int(chunks[0]), col_tiles=int(chunks[1]))
+        return seg.predict_scene_fullconv(raw, band_rows=band_rows)
+    if config.get("stream_rows"):
+        return seg.predict_scene_streamed(
+            raw, band_rows=int(config["stream_rows"]))
+    return seg.predict_scene(raw)
 
 
 def main(argv=None) -> int:

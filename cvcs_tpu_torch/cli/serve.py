@@ -106,7 +106,8 @@ def serve(config: dict) -> int:
             num_classes=num_classes,
             tta=bool(config.get("tta"))),
         returns_logits=spec.returns_logits,
-        requires_context=spec.requires_context, device=device)
+        requires_context=spec.requires_context,
+        stride_product=spec.stride_product, device=device)
 
     poll_s = float(config.get("poll_s", 2.0))
     settle_s = float(config.get("settle_s", 0.0))

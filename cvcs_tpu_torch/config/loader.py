@@ -1,5 +1,6 @@
 """YAML config loading and key validation (port of the training,
-evaluation, inference and serve parts of ``cvcs_tpu/config/loader.py``)."""
+evaluation, inference, serve and ESA parts of
+``cvcs_tpu/config/loader.py``)."""
 
 from __future__ import annotations
 
@@ -38,6 +39,11 @@ SERVE_KEYS = {
     "patch_size", "border_correction", "batch_tiles", "tta", "num_classes",
     "precision", "in_channels", "mesh", "device",
     "poll_s", "settle_s", "max_batch", "max_retries", "max_polls",
+}
+ESA_KEYS = {
+    "image", "net", "load_checkpoint", "ensemble_config", "patch_size",
+    "border_correction", "batch_tiles", "tta", "out_image", "output",
+    "num_classes", "precision", "in_channels", "mesh", "device",
 }
 
 

@@ -1,23 +1,33 @@
-"""Sliding-window whole-scene segmentation engine (port of the window path
-of ``cvcs_tpu/infer/engine.py``).
+"""Whole-scene segmentation engine (port of the single-device paths of
+``cvcs_tpu/infer/engine.py``).
 
-A scene is tiled row-major into p x p patches; each patch is forwarded
-inside a bc x bc border-correction window (centered by default,
-bottom-right anchored under ``bug_parity`` like the reference), the label
-window is center-cropped back to p, and the tiles are stitched into a
-label canvas. The scene goes to the device once as uint8, padded by
-bc - p on every side; windows are gathered, cast (uint8 -> f32 -> the
+The window path: a scene is tiled row-major into p x p patches; each
+patch is forwarded inside a bc x bc border-correction window (centered by
+default, bottom-right anchored under ``bug_parity`` like the reference),
+the label window is center-cropped back to p, and the tiles are stitched
+into a label canvas. The scene goes to the device once as uint8, padded
+by bc - p on every side; windows are gathered, cast (uint8 -> f32 -> the
 model's compute dtype), forwarded, argmaxed and stitched on the device,
 and the canvas is uint8, so a scene comes back in one uint8 transfer.
 Batches of ``batch_tiles`` windows run in order; the last batch is ragged
 (its labels are those of the wrapped tail batch of the JAX engine).
+
+The band paths: :meth:`SceneSegmenter.predict_scene_streamed` runs the
+window path band by band (device memory O(band), not O(scene));
+:meth:`SceneSegmenter.predict_scene_fullconv` forwards each band of tile
+rows as one full convolution over the halo-padded band, and
+:meth:`SceneSegmenter.predict_padded_fullconv` does so on a scene kept on
+the device, optionally as a batch of halo-overlapped blocks. The two
+host-banded paths bring each band's labels back one band late, on a copy
+stream, so that the copy and the host's preparation of the next band
+overlap the next band's compute.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import Callable
+from typing import Callable, Iterable
 
 import numpy as np
 import torch
@@ -54,11 +64,14 @@ class SceneSegmenter:
 
     def __init__(self, model: Callable, config: InferenceConfig,
                  returns_logits: bool = True, requires_context: bool = False,
-                 device=None):
+                 stride_product: int = 1, device=None):
         self.device = resolve_device(device)
         self.model = model
         self.cfg = config
         self.returns_logits = returns_logits
+        # the model's fullconv divisibility constraint (ModelSpec
+        # .stride_product); 1 = unconstrained
+        self.stride_product = stride_product
         if config.tta and not returns_logits:
             raise ValueError(
                 "tta averages logits over the dihedral flips — a "
@@ -77,6 +90,17 @@ class SceneSegmenter:
             raise ValueError("the label canvas is uint8: num_classes must "
                              "be <= 256")
         self.palette = GID15Palette()
+        self._copy_stream = None   # device -> host label copies (cuda)
+
+    def _reject_tta_fullconv(self) -> None:
+        """The fullconv paths do not apply the window path's dihedral TTA
+        averaging; refuse the combination rather than return non-TTA
+        labels for a TTA run."""
+        if self.cfg.tta:
+            raise ValueError(
+                "tta composes with the window path only; the fullconv "
+                "paths don't apply the dihedral averaging — drop 'tta' "
+                "or drop 'fullconv_bands'/'fullconv_chunks'")
 
     # -- geometry ------------------------------------------------------------
     def _window(self) -> tuple[int, int]:
@@ -152,26 +176,49 @@ class SceneSegmenter:
             stack.shape[0], rows * p, cols * p)
 
     # -- scene upload ------------------------------------------------------
+    def _grid(self, shape) -> TileGrid:
+        """The tile grid of an (H, W, ...) scene; raises when it holds no
+        whole tile."""
+        p = self.cfg.patch_size
+        grid = TileGrid((shape[0], shape[1]), p)
+        if grid.rows == 0 or grid.cols == 0:
+            raise ValueError(
+                f"scene {tuple(shape[:2])} is smaller than one {p}x{p} "
+                "patch — nothing to segment")
+        return grid
+
+    def _upload_padded(self, arr, top: int, bottom: int, left: int,
+                       right: int, pinned: bool = False) -> torch.Tensor:
+        """A host (..., H, W, C) array on the device, zero-padded on its
+        two spatial dims. ``pinned`` (the band paths): on the card the
+        copy goes asynchronously from pinned memory, so the host goes on
+        while the bands queued before it compute."""
+        arr = np.asarray(arr)
+        if pinned and self.device.type == "cuda":
+            dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
+            t = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
+            t.numpy()[...] = arr            # one host copy, into pinned
+        else:
+            pinned = False
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+        *lead, h, w, c = t.shape
+        out = torch.zeros((*lead, top + h + bottom, left + w + right, c),
+                          dtype=t.dtype, device=self.device)
+        out[..., top:top + h, left:left + w, :].copy_(t, non_blocking=pinned)
+        return out
+
     def pad_scenes(self, scenes):
         """Upload + zero-pad a same-shape scene stack once (uint8); returns
         (stack, rows, cols)."""
         if isinstance(scenes, (list, tuple)):
             scenes = np.stack([np.asarray(s) for s in scenes])
-        scenes = torch.as_tensor(np.asarray(scenes))
-        if scenes.dim() == 3:
+        scenes = np.asarray(scenes)
+        if scenes.ndim == 3:
             scenes = scenes[..., None]
-        p = self.cfg.patch_size
         bc, _ = self._window()
-        pad = bc - p
-        n, h, w, c = scenes.shape
-        grid = TileGrid((h, w), p)
-        if grid.rows == 0 or grid.cols == 0:
-            raise ValueError(
-                f"scene {(h, w)} is smaller than one {p}x{p} patch — "
-                "nothing to segment")
-        stack = torch.zeros((n, h + 2 * pad, w + 2 * pad, c),
-                            dtype=scenes.dtype, device=self.device)
-        stack[:, pad:pad + h, pad:pad + w] = scenes.to(self.device)
+        pad = bc - self.cfg.patch_size
+        grid = self._grid(scenes.shape[1:])
+        stack = self._upload_padded(scenes, pad, pad, pad, pad)
         return stack, grid.rows, grid.cols
 
     def pad_scene(self, scene):
@@ -188,6 +235,232 @@ class SceneSegmenter:
         """(H, W, C) uint8 scene -> on-device (H', W') uint8 label map, H'/W'
         the largest tile-aligned dims (partial tiles are dropped)."""
         return self.predict_padded(*self.pad_scene(scene))
+
+    # -- band paths: labels come back to the host one band late -----------
+    def _to_host_late(self, bands: Iterable[torch.Tensor]) -> np.ndarray:
+        """Concatenate the uint8 label bands that ``bands`` yields, as host
+        rows. Each band's copy is issued only after the next band was
+        launched (the generator launches it when asked for it), on a copy
+        stream that waits for that band's own work alone, so the copy and
+        the host's preparation of the next band overlap its compute."""
+        host, prev = [], None
+        for lab in bands:
+            done = None
+            if lab.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(lab.device))
+            if prev is not None:
+                host.append(self._fetch(*prev))
+            prev = (lab, done)
+        host.append(self._fetch(*prev))
+        return np.concatenate(host, axis=0)
+
+    def _fetch(self, lab: torch.Tensor, done) -> np.ndarray:
+        """One label band to the host: on the card, copied on the copy
+        stream after the event ``done`` (the band's own work)."""
+        if done is None:
+            return lab.numpy()
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(device=lab.device)
+        stream = self._copy_stream
+        stream.wait_event(done)
+        with torch.cuda.stream(stream):
+            out = torch.empty(lab.shape, dtype=lab.dtype, pin_memory=True)
+            out.copy_(lab, non_blocking=True)
+        lab.record_stream(stream)
+        stream.synchronize()
+        return out.numpy()
+
+    def predict_scene_streamed(self, scene, band_rows: int = 8) -> np.ndarray:
+        """Band-pipelined whole-scene window inference, for rasters too
+        tall to stage on the device whole: bands of ``band_rows`` tile
+        rows plus the border-correction halo are sliced from the real
+        scene (zero-padded only at the scene's edges) and run through the
+        window path, so at most a band of imagery and two label bands are
+        device-resident. Returns a host uint8 (H', W') array with the
+        labels of :meth:`predict_scene`."""
+        bc, _ = self._window()
+        pad = bc - self.cfg.patch_size
+        scene = np.asarray(scene)
+        cols = self._grid(scene.shape).cols
+        return self._to_host_late(
+            self._run(band[None], br, cols)[0]
+            for br, band in self._bands(scene, band_rows, pad,
+                                        scene.shape[1], pad, pad))
+
+    def _bands(self, scene: np.ndarray, band_rows: int, halo: int,
+               right: int, left_pad: int, right_pad: int):
+        """(tile rows, device band) for each band of ``band_rows`` tile
+        rows of the scene's grid: its rows plus ``halo`` above and below
+        taken from the real scene (columns up to ``right``) and
+        zero-padded only past the scene's edges, and ``left_pad`` /
+        ``right_pad`` zero columns."""
+        p = self.cfg.patch_size
+        rows = self._grid(scene.shape).rows
+        for r0 in range(0, rows, band_rows):
+            br = min(band_rows, rows - r0)
+            y0, y1 = r0 * p, (r0 + br) * p
+            top = max(0, y0 - halo)
+            bot = min(scene.shape[0], y1 + halo)
+            yield br, self._upload_padded(
+                scene[top:bot, :right], halo - (y0 - top),
+                max(0, halo - (bot - y1)), left_pad, right_pad, pinned=True)
+
+    # -- full-convolution band paths (opt-in, beyond the reference) --------
+    def _check_fullconv_divisible(self, halo: int, band_heights,
+                                  width: int) -> None:
+        """Every halo-padded band (or block) the model forwards must be a
+        multiple of the model's stride product, or the forward fails deep
+        in the decoder or misaligns; raise an error naming the knobs."""
+        s = self.stride_product
+        if s <= 1:
+            return
+        bad = sorted({d for d in set(band_heights) | {width} if d % s})
+        if bad:
+            p = self.cfg.patch_size
+            raise ValueError(
+                f"fullconv band shape(s) {bad} are not divisible by the "
+                f"model's stride product {s}: with patch_size={p} and "
+                f"halo={halo}, each band is (fullconv_bands*{p} + "
+                f"2*{halo}) rows (the tail band may be shorter) x "
+                f"(cols*{p} + 2*{halo}) columns — pick fullconv_bands / "
+                f"border_correction (halo = (border_correction - "
+                f"patch_size)/2) so both are multiples of {s}, or crop "
+                f"the scene's tile grid")
+
+    @staticmethod
+    def _fullconv_band_heights(rows: int, band_rows: int, p: int,
+                               halo: int) -> list[int]:
+        """Padded heights of the full bands and the (shorter) tail."""
+        return [min(band_rows, rows - r0) * p + 2 * halo
+                for r0 in range(0, rows, band_rows)]
+
+    def _fullconv_halo(self, halo: int | None) -> int:
+        return (self._window()[0] - self.cfg.patch_size) // 2 \
+            if halo is None else halo
+
+    @torch.inference_mode()
+    def _fullconv_forward(self, x: torch.Tensor, out_h: int, out_w: int,
+                          halo: int) -> torch.Tensor:
+        """(N, Hb, Wb, C) uint8 halo-padded bands or blocks -> (N, out_h,
+        out_w) uint8 labels of one forward, the halo cropped off."""
+        out = self.model(x.to(torch.float32))
+        lab = out.argmax(-1) if self.returns_logits else out
+        return lab[:, halo:halo + out_h, halo:halo + out_w].to(torch.uint8)
+
+    def predict_scene_fullconv(self, scene, band_rows: int = 8,
+                               halo: int | None = None) -> np.ndarray:
+        """Seamless full-convolution inference (opt-in; not the reference's
+        per-window semantics). Each band of ``band_rows`` tile rows runs
+        as one forward at batch 1 over the band padded by ``halo`` (default
+        (bc - p) // 2) real or, at the scene's edges, zero pixels: about
+        (1 + 2 halo / band_h)(1 + 2 halo / W) of the scene's pixels against
+        the window path's bc² / p², no per-tile gather and no tile seams
+        inside a band. Band shapes must be multiples of the model's stride
+        product. Bands stream through the device as in
+        :meth:`predict_scene_streamed`. Returns host uint8 (H', W')."""
+        self._reject_tta_fullconv()
+        p = self.cfg.patch_size
+        halo = self._fullconv_halo(halo)
+        scene = np.asarray(scene)
+        grid = self._grid(scene.shape)
+        rows, cols = grid.rows, grid.cols
+        w = cols * p
+        self._check_fullconv_divisible(
+            halo, self._fullconv_band_heights(rows, band_rows, p, halo),
+            w + 2 * halo)
+        right = min(scene.shape[1], w + halo)   # real pixels where present
+        return self._to_host_late(
+            self._fullconv_forward(band[None], br * p, w, halo)[0]
+            for br, band in self._bands(scene, band_rows, halo, right, halo,
+                                        halo - (right - w)))
+
+    def pad_scene_fullconv(self, scene, halo: int | None = None):
+        """Upload + halo-pad a scene once for
+        :meth:`predict_padded_fullconv`: real pixels fill the bottom and
+        right halo where the raster extends past the tile grid, zeros
+        elsewhere. Returns ``(padded (H' + 2h, W' + 2h, C) uint8 on the
+        device, rows, cols, halo)``."""
+        self._reject_tta_fullconv()
+        p = self.cfg.patch_size
+        halo = self._fullconv_halo(halo)
+        scene = np.asarray(scene)
+        grid = self._grid(scene.shape)
+        h, w = grid.rows * p, grid.cols * p
+        bot = min(scene.shape[0], h + halo)
+        right = min(scene.shape[1], w + halo)
+        padded = self._upload_padded(scene[:bot, :right], halo,
+                                     h + halo - bot, halo, w + halo - right)
+        return padded, grid.rows, grid.cols, halo
+
+    def _fullconv_band(self, padded, r0: int, band_h: int, out_h: int,
+                       out_w: int, halo: int) -> torch.Tensor:
+        """One halo-overlapped band of the device-resident padded scene,
+        forwarded whole."""
+        return self._fullconv_forward(padded[None, r0:r0 + band_h], out_h,
+                                      out_w, halo)[0]
+
+    def _fullconv_band_chunked(self, padded, r0: int, chunk_h: int,
+                               chunk_w: int, n_rows: int, n_cols: int,
+                               chunk_out_h: int, chunk_out_w: int,
+                               halo: int) -> torch.Tensor:
+        """A band as a batch of an ``n_rows x n_cols`` grid of
+        halo-overlapped blocks, forwarded together (squarer batched shapes
+        than one full-width band; seams every block, each healed by
+        ``halo`` px of real context)."""
+        blocks = torch.stack([
+            padded[r0 + i * chunk_out_h:r0 + i * chunk_out_h + chunk_h,
+                   j * chunk_out_w:j * chunk_out_w + chunk_w]
+            for i in range(n_rows) for j in range(n_cols)])
+        labs = self._fullconv_forward(blocks, chunk_out_h, chunk_out_w, halo)
+        return (labs.reshape(n_rows, n_cols, chunk_out_h, chunk_out_w)
+                .permute(0, 2, 1, 3)
+                .reshape(n_rows * chunk_out_h, n_cols * chunk_out_w))
+
+    def predict_padded_fullconv(self, padded, rows: int, cols: int,
+                                halo: int, band_rows: int = 8,
+                                col_tiles: int | None = None,
+                                row_tiles: int | None = None
+                                ) -> torch.Tensor:
+        """Full-convolution inference over a scene padded by
+        :meth:`pad_scene_fullconv`, with no host round trip between bands:
+        returns the stitched (rows*p, cols*p) uint8 label map on the
+        device. The labels of :meth:`predict_scene_fullconv` when
+        ``col_tiles`` is None; with ``col_tiles=k`` each band runs as a
+        batch of halo-overlapped blocks k tiles wide and ``row_tiles``
+        (default ``band_rows``) tiles tall. ``col_tiles`` must divide
+        ``cols``; a band that ``row_tiles`` does not divide (the tail)
+        falls back to band-tall blocks."""
+        p = self.cfg.patch_size
+        w = cols * p
+        if col_tiles is not None and (col_tiles < 1 or cols % col_tiles):
+            raise ValueError(
+                f"col_tiles={col_tiles} must be a positive divisor of "
+                f"the scene's {cols} tile columns")
+        heights = self._fullconv_band_heights(rows, band_rows, p, halo)
+        if col_tiles is None:
+            self._check_fullconv_divisible(halo, heights, w + 2 * halo)
+        else:
+            rt0 = row_tiles or band_rows
+            self._check_fullconv_divisible(
+                halo, [rt0 * p + 2 * halo] + [
+                    bh for bh in heights if (bh - 2 * halo) // p % rt0],
+                col_tiles * p + 2 * halo)
+        bands = []
+        for r0 in range(0, rows, band_rows):
+            br = min(band_rows, rows - r0)
+            if col_tiles is None:
+                bands.append(self._fullconv_band(
+                    padded, r0 * p, br * p + 2 * halo, br * p, w, halo))
+            else:
+                rt = row_tiles or br
+                if br % rt:
+                    rt = br
+                bands.append(self._fullconv_band_chunked(
+                    padded, r0 * p, rt * p + 2 * halo,
+                    col_tiles * p + 2 * halo, br // rt, cols // col_tiles,
+                    rt * p, col_tiles * p, halo))
+        return torch.cat(bands, dim=0)
 
     def predict_scenes_padded(self, stack, rows: int,
                               cols: int) -> torch.Tensor:

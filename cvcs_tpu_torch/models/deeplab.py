@@ -29,6 +29,7 @@ adapter's are ``backbone.upsample``, ``backbone.out_layer`` and
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from cvcs_tpu_torch.models.blocks import (SeededDropout, at_least_f32,
@@ -45,6 +46,36 @@ from cvcs_tpu_torch.ops.resize import resize_bilinear
 def _conv_bn_relu(x, conv: nn.Conv2d, bn: nn.BatchNorm2d) -> torch.Tensor:
     y = conv_nhwc(x, conv, padding=conv.padding[0])
     return torch.relu(batch_norm(y, bn))
+
+
+def phase_conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """A 3x3 conv at dilation r and padding r on NHWC ``x``, computed as
+    a dense 3x3 conv over the r x r phase maps of ``x`` zero-padded to a
+    multiple of r (space to batch): the same taps and sums."""
+    r = conv.dilation[0]
+    b, h, w, c = x.shape
+    hp, wp = -(-h // r) * r, -(-w // r) * r
+    x = F.pad(x, (0, 0, 0, wp - w, 0, hp - h))
+    x = (x.reshape(b, hp // r, r, wp // r, r, c).permute(0, 2, 4, 1, 3, 5)
+         .reshape(b * r * r, hp // r, wp // r, c))
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), bias, 1, 1)
+    y = (y.reshape(b, r, r, -1, hp // r, wp // r).permute(0, 3, 4, 1, 5, 2)
+         .reshape(b, -1, hp, wp)[:, :, :h, :w])
+    return y.permute(0, 2, 3, 1)
+
+
+def _atrous_conv_bn_relu(x, conv: nn.Conv2d,
+                         bn: nn.BatchNorm2d) -> torch.Tensor:
+    """An atrous branch (3x3 at rate r, padding r). A batch of one, as a
+    fullconv band gives, runs as :func:`phase_conv`: for such a dilated
+    conv at batch 1 cuDNN takes its direct kernel, 1.9-14.7 s a conv at a
+    band's stage-4 maps on the H100 where the phase maps take 1.3-5.7
+    ms; at the window path's batches cuDNN's dilated conv is the faster,
+    2.3-4.2 ms against 4.4-8.6 (``tools/aspp_probe.py``)."""
+    if x.shape[0] != 1 or conv.padding[0] != conv.dilation[0]:
+        return _conv_bn_relu(x, conv, bn)
+    return torch.relu(batch_norm(phase_conv(x, conv), bn))
 
 
 class ASPP(nn.Module):
@@ -73,7 +104,8 @@ class ASPP(nn.Module):
                                               SeededDropout(dropout)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        branches = [_conv_bn_relu(x, *branch) for branch in self.convs[:-1]]
+        branches = [_conv_bn_relu(x, *self.convs[0])] + [
+            _atrous_conv_bn_relu(x, *branch) for branch in self.convs[1:-1]]
         _, conv, bn = self.convs[-1]
         pooled = at_least_f32(x).mean((1, 2), keepdim=True).to(x.dtype)
         pooled = _conv_bn_relu(pooled, conv, bn)

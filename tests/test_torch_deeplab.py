@@ -50,6 +50,7 @@ from cvcs_tpu_torch.cli import common
 from cvcs_tpu_torch.models import build_model
 from cvcs_tpu_torch.models import deeplab as tdl
 from cvcs_tpu_torch.models import registry as tregistry
+from cvcs_tpu_torch.models.blocks import conv_nhwc
 from cvcs_tpu_torch.train.optim import build_optimizer
 from cvcs_tpu_torch.train.state import TrainState
 from cvcs_tpu_torch.train.step import train_step
@@ -133,6 +134,44 @@ def test_aspp_matches_jax(precision):
         got = port.eval()(torch.from_numpy(x).to(tdt))
     assert got.dtype == tdt and got.shape == (2, 48, 48, 256)
     _close(got, want, TOL[precision], f"{precision} ASPP")
+
+
+@pytest.mark.parametrize("hw", [(40, 52), (17, 30)])
+def test_aspp_batch_one_runs_dense_phase_convs(hw, monkeypatch):
+    """Repair: at batch 1 (a fullconv band) the atrous branches run as
+    dense 3x3 convs over the rate's phase maps, never as a dilated conv,
+    whose cuDNN path takes its direct kernel there (seconds a conv on the
+    H100); at batch 2 (the window path) they stay dilated convs. The
+    batch-1 output equals the batch-2 one's first image (f64)."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(2, *hw, 32)))
+    port = tdl.ASPP(32).eval()
+    with torch.no_grad():
+        for prm in port.parameters():
+            prm.copy_(torch.from_numpy(rng.normal(size=prm.shape) * 0.2))
+    dilations = []
+    conv2d = torch.nn.functional.conv2d
+
+    def spy(inp, weight, bias=None, stride=1, padding=0, dilation=1,
+            groups=1):
+        dilations.append((inp.shape[0], dilation))
+        return conv2d(inp, weight, bias, stride, padding, dilation, groups)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", spy)
+    with torch.no_grad():
+        one = port(x[:1])
+        assert all(d in (1, (1, 1)) for _, d in dilations), dilations
+        two = port(x)
+    assert {d for _, d in dilations} >= {(12, 12), (24, 24), (36, 36)}
+    assert one.shape == (1, *hw, 256)
+    np.testing.assert_allclose(one.numpy(), two[:1].numpy(), rtol=0,
+                               atol=1e-12)
+    monkeypatch.undo()
+    conv = port.convs[1][0]                     # rate 12, also at batch 2
+    with torch.no_grad():
+        np.testing.assert_allclose(
+            tdl.phase_conv(x, conv).numpy(),
+            conv_nhwc(x, conv, padding=12).numpy(), rtol=0, atol=1e-12)
 
 
 @pytest.mark.parametrize("name,p,precision", [
