@@ -49,16 +49,30 @@ Phases (any failure raises and the script exits non-zero):
    plain attention on >= 99.9%; the stage-1 mask's host cost;
    ``cli.esa`` at p 512 on a 2600 x 3100 raster (K1 on one forward);
    Unetv2 streamed (the f32 rule) and fullconv, Resnet101 fullconv and
-   SegformerMod's 2 x 4-tile block grid;
-5. the training path: ``python -m cvcs_tpu_torch.cli.train``'s ``main``
-   trains full-width SwinUnet with the recipe's geometry (p 224, batch
-   10, wCEL with ignore_background, SGD2, bf16, random_shift,
-   ``augmentation: fused``) for 2 epochs on a synthetic dataset (2 train
-   scenes of 1792 x 2240, 160 patches per chunk, 1 validation scene),
-   then resumes from the epoch-1 checkpoint; the counters must show K1
-   and K2 12 times per step and K5 once per chunk; a few steps are timed
-   (CUDA events) and traced for the share of each kernel. Then the
-   canonical Unetv2 recipe (``configs/train_unetv2.yaml``: the same
+   SegformerMod's 2 x 4-tile block grid. Then retrieval: ``cli.retrieve``
+   over two 6720 x 7168 scenes (1,920 patches at p 224, images and masks
+   on the card), mask-only (10 probes, top 10), whose card scores of
+   three probes must equal a host reference within 1e-6 and whose
+   rankings must agree with the reference's under the tie rule; then
+   ``net: vitb8`` and ``vits16`` (DINO-named checkpoints of seeded random
+   weights) and the zoo taps of MobileNet and Unetv2, each with its
+   embedding rate and peak memory, and f32 embeddings of 16 patches on
+   the card against the CPU's;
+5. the training path: first, in a process of its own, one SwinUnet
+   epoch through ``cli.train`` with ``profile_dir`` (the trace must name
+   K1's, K2's and K5's CUDA kernels) and ``debug_plot`` (where matplotlib
+   imports: one PNG a chunk). Then ``python -m
+   cvcs_tpu_torch.cli.train``'s ``main`` trains full-width SwinUnet with
+   the recipe's geometry (p 224, batch 10, wCEL with ignore_background,
+   SGD2, bf16, random_shift, ``augmentation: fused``) for 2 epochs on a
+   synthetic dataset (2 train scenes of 1792 x 2240, 160 patches per
+   chunk, 1 validation scene), then resumes from the epoch-1 checkpoint;
+   the counters must show K1 and K2 12 times per step and K5 once per
+   chunk; ``cli.export`` writes the last checkpoint as a state dict that
+   loads with ``strict=True`` into a fresh SwinUnet whose logits equal
+   the restored trainer's bit for bit; a few steps are timed (CUDA
+   events) and traced for the share of each kernel. Then the canonical
+   Unetv2 recipe (``configs/train_unetv2.yaml``: the same
    geometry with ``augmentation: True``) the same way, and one epoch of a
    ``Trainer`` built the same way with ``build_fused_ce`` as its loss: K3
    once per train step and per validation batch, K4 once per train step.
@@ -122,6 +136,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -1465,6 +1480,294 @@ def other_band_paths(result: dict, scene) -> None:
     result["other_bands"] = out
 
 
+# -- retrieval: cli.retrieve over a GID15-sized candidate pool ---------------
+RETRIEVAL_SCENE = (6720, 7168)     # the largest multiple of 224 in 6800 x 7200
+RETRIEVAL_BLOCK = 112              # label blocks: 4 a patch, so scores tie
+TOL_SCORES = 1e-6                  # card scores vs host reference, absolute
+TOL_EMBED = 1e-4                   # f32 card vs CPU, x max(1, |CPU|max)
+EMBED_CHECK = 16                   # patches whose embeddings card and CPU give
+EMBED_BATCH = 16                   # the entry point's default batch_size
+EMBED_TIMED = 20                   # batches the embedding rate is timed over
+SCORE_ORDER = (("emd", False), ("miou", True), ("wiou", True),
+               ("pprec", True))
+
+
+def vit_flops(variant: str) -> float:
+    """Operations of one DINO trunk's forward at p 224: per block
+    24·T·d² (QKV, projection and MLP products) + 4·T²·d (the two
+    attention products), T tokens of width d."""
+    from cvcs_tpu_torch.models.vit import VIT_VARIANTS
+
+    v = VIT_VARIANTS[variant]
+    t, d = (224 // v["patch"]) ** 2 + 1, v["dim"]
+    return v["depth"] * (24 * t * d * d + 4 * t * t * d)
+
+
+def retrieval_dataset(root: Path) -> str:
+    """Two 6720 x 7168 scenes (uncompressed TIFF, so decoding is a copy)
+    with labels in 112 x 112 blocks, seeded: 1,920 patches at p 224."""
+    from PIL import Image
+
+    (root / "Image__8bit_NirRGB").mkdir(parents=True)
+    (root / "Annotation__index").mkdir()
+    rng = np.random.default_rng(40)
+    h, w = RETRIEVAL_SCENE
+    b = RETRIEVAL_BLOCK
+    for i in range(2):
+        Image.fromarray(synthetic_scene(h, w, 40 + i)).save(
+            root / "Image__8bit_NirRGB" / f"s{i}.tif")
+        labels = np.kron(rng.integers(0, NC, (h // b, w // b), dtype=np.uint8),
+                         np.ones((b, b), np.uint8))
+        Image.fromarray(labels).save(
+            root / "Annotation__index" / f"s{i}_15label.tif")
+    return str(root)
+
+
+def _class_sum(x: np.ndarray) -> np.ndarray:
+    acc = x[:, 0]
+    for i in range(1, x.shape[1]):
+        acc = (acc + x[:, i]).astype(np.float32)
+    return acc
+
+
+def _class_cumsum(x: np.ndarray) -> np.ndarray:
+    out = [x[:, 0]]
+    for i in range(1, x.shape[1]):
+        out.append((out[-1] + x[:, i]).astype(np.float32))
+    return np.stack(out, axis=1)
+
+
+def host_scores(t: np.ndarray, q: np.ndarray) -> dict:
+    """The four mask scores of ``q`` (B, H, W) against ``t`` (H, W) on the
+    host, by another route than ``retrieval/scores.py``: every count from
+    one joint (target class, query class) histogram a query, then f32
+    ratios and class-order f32 sums."""
+    f32 = np.float32
+    b = q.shape[0]
+    codes = (t.reshape(1, -1).astype(np.int32) * NC + q.reshape(b, -1)
+             + (np.arange(b, dtype=np.int32) * NC * NC)[:, None])
+    joint = np.bincount(codes.ravel(), minlength=b * NC * NC).reshape(
+        b, NC, NC)                               # [query, t class, q class]
+    inter = joint[:, np.arange(NC), np.arange(NC)][:, 1:]
+    tcount, qcount = joint.sum(2)[:, 1:], joint.sum(1)[:, 1:]
+    union = tcount + qcount - inter
+    iou = np.where(union > 0, inter.astype(f32)
+                   / np.maximum(union, 1).astype(f32), f32(0))
+    support = tcount[0]
+    n_fg = f32(max(int(support.sum()), 1))
+
+    def hist(c):
+        tot = c.sum(1, keepdims=True)
+        return np.where(tot > 0, c.astype(f32)
+                        / np.maximum(tot, 1).astype(f32), f32(0))
+
+    return {
+        "miou": _class_sum(iou)
+        / np.maximum((union > 0).sum(1), 1).astype(f32),
+        "wiou": _class_sum(iou * (support.astype(f32) / n_fg)[None]),
+        "pprec": inter.sum(1).astype(f32) / n_fg,
+        "emd": _class_sum(np.abs(_class_cumsum(hist(tcount[:1]))
+                                 - _class_cumsum(hist(qcount)))),
+    }
+
+
+def tie_runs(order, values) -> dict:
+    """Candidate id -> its run in the reference ranking: a run ends where
+    neighbouring reference scores differ by more than ``TOL_SCORES``
+    (``tests/test_torch_retrieval.py``'s tie rule)."""
+    runs, run = {}, 0
+    for i, k in enumerate(order):
+        prev = float(values[order[i - 1]])
+        if i and abs(float(values[k]) - prev) > TOL_SCORES:
+            run += 1
+        runs[int(k)] = run
+    return runs
+
+
+def traced_breakdown(what: str, fn) -> dict | None:
+    """One call of ``fn`` traced: device kernel time over the span, the
+    idle share, the launches, and the four costliest kernels; None ("not
+    measured") when the profiler recorded nothing."""
+    prof = phase7_profile(fn)
+    if prof is None:
+        return None
+    top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1][0])[:4]
+    launches = sum(c for _, c in prof["by_name"].values())
+    log(f"    {what} traced: kernels {prof['kernel_ms']:.3f} ms over a "
+        f"{prof['span_ms']:.3f} ms span, idle {prof['idle_share'] * 100:.1f}%"
+        f", {launches} launches; "
+        + "; ".join(f"{t:.3f} ms {n}x {k[:60]}" for k, (t, n) in top))
+    return dict(kernel_ms=prof["kernel_ms"], span_ms=prof["span_ms"],
+                idle_share=prof["idle_share"], launches=launches,
+                top=[dict(name=k[:90], ms=t, count=n) for k, (t, n) in top])
+
+
+def check_mask_retrieval(got: dict, masks: torch.Tensor) -> dict:
+    """The first three probes' card scores against :func:`host_scores`
+    (within ``TOL_SCORES``; bit-equal elements counted), and the entry
+    point's top-10 rankings against the host scores' under the tie rule;
+    the card's time to score one probe against the pool."""
+    from cvcs_tpu_torch.retrieval.scores import SCORE_NAMES, compute_scores
+
+    host = masks.cpu().numpy()
+    worst, equal, total, runs_seen = 0.0, 0, 0, []
+    for r in got["mask_rankings"][:3]:
+        p = r["probe"]
+        card = compute_scores(masks[p], masks, NC)
+        card = dict(zip(SCORE_NAMES, torch.stack(
+            [card[k] for k in SCORE_NAMES]).cpu().numpy()))
+        ref = host_scores(host[p], host)
+        for key, higher in SCORE_ORDER:
+            worst = max(worst, float(np.abs(card[key] - ref[key]).max()))
+            equal += int((card[key] == ref[key]).sum())
+            total += card[key].size
+            order = np.argsort(ref[key])
+            order = [int(k) for k in (order[::-1] if higher else order)
+                     if k != p]
+            runs = tie_runs(order, ref[key])
+            runs_seen.append(len(set(runs.values())))
+            assert ([runs[k] for k in r[key]]
+                    == [runs[k] for k in order[:len(r[key])]]), (p, key)
+    probe = got["mask_rankings"][0]["probe"]
+    score_ms = cuda_ms(lambda: compute_scores(masks[probe], masks, NC))
+    trace = traced_breakdown("compute_scores of one probe",
+                             lambda: compute_scores(masks[probe], masks, NC))
+    log(f"  scores of 3 probes x {masks.shape[0]} masks on the card vs the "
+        f"host reference: max |diff| {worst:.3g} (tolerance {TOL_SCORES}), "
+        f"{equal} of {total} bit-equal; the top-10 rankings agree under the "
+        f"tie rule ({min(runs_seen)}-{max(runs_seen)} runs of ties among "
+        f"{masks.shape[0] - 1} candidates); compute_scores {score_ms:.3f} ms"
+        f" a probe (CUDA events, mean of 10)")
+    assert worst <= TOL_SCORES
+    return dict(max_abs_err=worst, bit_equal=equal, compared=total,
+                score_ms_per_probe=score_ms, trace=trace)
+
+
+def embed_rate(cfg: dict, images: torch.Tensor) -> dict:
+    """The embedder of ``cfg`` alone on the card: patches/s over
+    ``EMBED_TIMED`` batches after one to warm, synchronised; one batch
+    traced; and its f32 embeddings of the first ``EMBED_CHECK`` patches."""
+    from cvcs_tpu_torch.cli import retrieve as retrieve_cli
+
+    embed, _ = retrieve_cli.build_embedder(cfg, torch.device("cuda"))
+    batches = [images[s:s + EMBED_BATCH] for s in range(
+        0, EMBED_TIMED * EMBED_BATCH, EMBED_BATCH)]
+    embed(batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = torch.cat([embed(b) for b in batches])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    assert torch.isfinite(emb).all()
+    trace = traced_breakdown(f"{cfg['net']}, one batch of {EMBED_BATCH}",
+                             lambda: embed(batches[0]))
+    on_card, _ = retrieve_cli.build_embedder(dict(cfg, precision="f32"),
+                                             torch.device("cuda"))
+    return dict(dim=int(emb.shape[1]),
+                patches_per_s=EMBED_TIMED * EMBED_BATCH / secs, trace=trace,
+                f32_card=on_card(images[:EMBED_CHECK]).cpu())
+
+
+def retrieval_path(result: dict):
+    """``cli.retrieve``'s entry point over two GID15-sized scenes (1,920
+    patches at p 224 on the card): mask-only (10 probes, top 10; scores and
+    rankings against the host reference); then ``net: vitb8`` and
+    ``vits16`` (DINO-named ``.pth`` of seeded random weights through
+    ``load_checkpoint``, bf16) and the zoo taps of MobileNet (max-pooled,
+    960-d) and Unetv2 (x5, 1024-d), each with its embedding rate, the peak
+    memory above the run's start, and the card's f32 embeddings of
+    ``EMBED_CHECK`` patches. The CPU's f32 embeddings of the same patches
+    are computed on a worker thread after the card's measurements, while
+    the caller goes on (the CPU's ViT-B/8 takes seconds); the returned
+    callable waits for them and holds the card's against them."""
+    from cvcs_tpu_torch.cli import retrieve as retrieve_cli
+    from cvcs_tpu_torch.models.vit import dino_vit
+
+    def timed(cfg):
+        base = torch.cuda.memory_allocated() / 2 ** 30
+        got, secs, peak = run_timed(lambda: retrieve_cli.retrieve(dict(cfg)))
+        return got, secs, peak - base
+
+    out, on_cpu = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        root = retrieval_dataset(tmp / "pool")
+        log(f"  two {RETRIEVAL_SCENE[0]} x {RETRIEVAL_SCENE[1]} scenes "
+            f"written in {time.perf_counter() - t0:.2f} s")
+        base = dict(dataset=root, patch_size=224, num_probes=10, topk=10,
+                    seed=0)
+        got, secs, peak = timed(base)
+        n = 2 * (RETRIEVAL_SCENE[0] // 224) * (RETRIEVAL_SCENE[1] // 224)
+        assert got["num_probes"] == 10 and len(got["mask_rankings"]) == 10
+        for r in got["mask_rankings"]:
+            for key, _ in SCORE_ORDER:
+                assert len(r[key]) == 10 and r["probe"] not in r[key]
+        images, masks = retrieve_cli.candidate_pool(base,
+                                                    torch.device("cuda"))
+        assert images.shape[0] == masks.shape[0] == n
+        log(f"  cli.retrieve mask-only, {n} patches on the card "
+            f"({images.numel() / 1e6:.0f} MB of images, "
+            f"{masks.numel() / 1e6:.0f} MB of masks): {secs:.2f} s, peak {peak:.2f} GiB above its "
+            f"start; timings {got['timings']}; "
+            f"{got['timings']['scores_s'] * 100:.1f} ms a probe end to end")
+        out["mask_only"] = dict(seconds=secs, peak_gib=peak,
+                                timings=got["timings"],
+                                **check_mask_retrieval(got, masks))
+        del masks
+        for net in ("vitb8", "vits16", "MobileNet", "Unetv2"):
+            cfg = dict(base, net=net)
+            if net.startswith("vit"):
+                ckpt = tmp / f"dino_{net}.pth"
+                torch.save(dino_vit(net, seed=0).state_dict(), ckpt)
+                cfg["load_checkpoint"] = str(ckpt)
+            got, secs, peak = timed(cfg)
+            ag = got["agreement"]
+            assert set(ag) >= {"top1", "top5", "top10", "top5to50"}
+            assert all(0.0 <= v <= 1.0 for v in ag.values())
+            emb = embed_rate(cfg, images)
+            rate = ""
+            if net.startswith("vit"):
+                flops = vit_flops(net)
+                emb.update(gflop_per_patch=flops / 1e9,
+                           tflops=flops * emb["patches_per_s"] / 1e12,
+                           bound_patches_per_s=PEAK_FLOPS[torch.bfloat16]
+                           / flops)
+                rate = (f" = {emb['tflops']:.1f} TFLOP/s of its "
+                        f"{emb['gflop_per_patch']:.2f} GFLOP a patch (bf16 "
+                        f"peak: {emb['bound_patches_per_s']:.0f} patches/s)")
+            log(f"  cli.retrieve net {net} bf16: {secs:.2f} s, peak "
+                f"{peak:.2f} GiB above its start, timings {got['timings']}; "
+                f"agreement { {k: round(v, 3) for k, v in ag.items()} }; the"
+                f" embedder alone {emb['patches_per_s']:.1f} patches/s over "
+                f"{EMBED_TIMED} batches of {EMBED_BATCH}{rate}; "
+                f"{emb['dim']}-d")
+            out[net] = dict(seconds=secs, peak_gib=peak,
+                            timings=got["timings"], agreement=ag, **emb)
+            on_cpu[net], _ = retrieve_cli.build_embedder(
+                dict(cfg, precision="f32"), torch.device("cpu"))
+        host = images[:EMBED_CHECK].cpu()
+        del images
+    result["retrieval"] = out
+    torch.cuda.empty_cache()
+    worker = ThreadPoolExecutor(1)
+    refs = {net: worker.submit(fn, host) for net, fn in on_cpu.items()}
+
+    def compare() -> None:
+        for net, ref in refs.items():
+            want = ref.result()
+            got = out[net].pop("f32_card")
+            err = (float((got - want).abs().max())
+                   / max(1.0, float(want.abs().max())))
+            log(f"  {net} f32 embeddings of {EMBED_CHECK} patches, card vs "
+                f"CPU: {err:.3g} of scale (tolerance {TOL_EMBED})")
+            assert err <= TOL_EMBED, (net, err)
+            out[net]["f32_card_vs_cpu"] = err
+        worker.shutdown()
+
+    return compare
+
+
 # -- the training path -----------------------------------------------------------
 TRAIN_EPOCHS = 2
 STEPS_PER_EPOCH = 16               # 2 scenes x 80 tiles / batch 10
@@ -1686,10 +1989,50 @@ def train_path(result: dict) -> None:
         assert len(hist) == steps and np.isfinite(hist).all()
         assert hist[:STEPS_PER_EPOCH] == losses[:STEPS_PER_EPOCH]
 
+        result["train"]["export"] = export_path(
+            cfg, tmp / "ckpt" / f"checkpoint{TRAIN_EPOCHS}", tmp)
         trainer = train_cli.build_trainer(dict(cfg, load_checkpoint=None))
         result["train"]["breakdown"] = train_breakdown(trainer)
         del trainer
     torch.cuda.empty_cache()
+
+
+def export_path(cfg: dict, ckpt: Path, tmp: Path) -> dict:
+    """``cli.export``'s ``main`` on the checkpoint the train run wrote: the
+    file loads with ``strict=True`` into a fresh SwinUnet, whose logits on
+    one validation batch equal those of a trainer restored from the same
+    checkpoint, bit for bit."""
+    import yaml
+
+    from cvcs_tpu_torch.cli import export as export_cli
+    from cvcs_tpu_torch.cli import train as train_cli
+    from cvcs_tpu_torch.models import build_model
+
+    out = tmp / "swin_export.pt"
+    path = tmp / "export.yaml"
+    path.write_text(yaml.safe_dump(dict(
+        net="SwinUnet", load_checkpoint=str(ckpt), output=str(out),
+        num_classes=15)))
+    t0 = time.perf_counter()
+    assert export_cli.main(["export", str(path)]) == 0
+    secs = time.perf_counter() - t0
+    sd = torch.load(out, weights_only=True)
+    fresh, _ = build_model("SwinUnet", NC, seed=1)
+    fresh.load_state_dict(sd, strict=True)
+    trainer = train_cli.build_trainer(dict(cfg, load_checkpoint=str(ckpt)))
+    model = trainer.state.model.eval()
+    batch = next(trainer.val_loader.get_chunk(0, shuffle_patches=False)
+                 .batches(B_TRAIN, drop_last=False, pad_tail=False))
+    with torch.no_grad():
+        want, got = model(batch.image), fresh.eval()(batch.image)
+    same = bool(torch.equal(got, want))
+    log(f"  cli.export SwinUnet {ckpt.name}: {len(sd)} tensors, "
+        f"{out.stat().st_size / 1e6:.1f} MB in {secs:.2f} s; loads strict "
+        f"into a fresh SwinUnet; logits of {B_TRAIN} validation patches "
+        f"equal the restored trainer's bit for bit: {same}")
+    assert same
+    return dict(tensors=len(sd), mb=out.stat().st_size / 1e6, seconds=secs,
+                logits_equal=same)
 
 
 def unet_train_path(result: dict, ckpts: Path) -> None:
@@ -2710,6 +3053,83 @@ def ensemble_path(result: dict, ckpts: Path) -> None:
     torch.cuda.empty_cache()
 
 
+def trace_train(out_path: str) -> int:
+    """``chip_smoke.py --trace-train <json>``, run by
+    :func:`trace_train_in_child` in a process of its own (a fresh
+    profiler: see :func:`phase7`) and a scratch working directory (the
+    trainer's ``debug/`` lands there): one SwinUnet epoch over one
+    1792 x 2240 scene (8 steps, 8 validation batches) through
+    ``cli.train``'s ``main`` (the train cell's recipe, ``augmentation:
+    fused``) with ``profile_dir`` and, where matplotlib imports,
+    ``debug_plot``. The trace it writes must name K1's, K2's and K5's CUDA
+    kernels; each chunk must leave a debug PNG."""
+    import importlib.util
+
+    import yaml
+
+    from cvcs_tpu_torch.cli import train as train_cli
+    from cvcs_tpu_torch.utils.profiling import TRACE_FILE
+
+    tmp = Path.cwd()
+    plots = importlib.util.find_spec("matplotlib") is not None
+    data = synthetic_dataset(tmp / "data", 1, seed=20)
+    cfg = dict(
+        train=data, validation=data,
+        checkpoint_directory=str(tmp / "ckpt"), net="SwinUnet", epochs=1,
+        chunk_size=1, validation_chunk_size=1, patch_size=224,
+        batch_size=B_TRAIN, loss="wCEL", opt="SGD2", ignore_background=True,
+        random_shift=True, augmentation="fused", precision_evaluation_freq=5,
+        num_classes=15, precision="bf16", seed=0, debug_plot=plots)
+    out = dict(matplotlib=plots)
+    for attempt in (1, 2):
+        cfg["profile_dir"] = str(tmp / f"prof{attempt}")
+        path = tmp / "train.yaml"
+        path.write_text(yaml.safe_dump(cfg))
+        reset_counts()
+        t0 = time.perf_counter()
+        assert train_cli.main(["train", str(path)]) == 0
+        torch.cuda.synchronize()
+        trace = Path(cfg["profile_dir"]) / TRACE_FILE
+        events = json.loads(trace.read_text())["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        out.update(seconds=time.perf_counter() - t0, attempt=attempt,
+                   trace_mb=trace.stat().st_size / 1e6, events=len(events),
+                   kernel_events=len(kernels), launches=kernel_counts(), **{
+                       f"{k}_kernel_events": sum(key in n for n in kernels)
+                       for k, key in (("K1", "swin_attn_fwd"),
+                                      ("K2", "swin_bwd_"),
+                                      ("K5", "augment_kernel"))})
+        if kernels:
+            break
+    if plots:
+        out["debug_pngs"] = sorted(p.name for p in (tmp / "debug").iterdir())
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def trace_train_in_child() -> dict:
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "trace.json"
+        subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--trace-train", str(out)], check=True, timeout=600,
+                       cwd=tmp)
+        got = json.loads(out.read_text())
+    log(f"  cli.train SwinUnet, 1 epoch, profile_dir: {got['seconds']:.2f} s "
+        f"(attempt {got['attempt']}); trace.json {got['trace_mb']:.1f} MB, "
+        f"{got['events']} events, {got['kernel_events']} CUDA kernels, of "
+        f"them K1 {got['K1_kernel_events']}, K2 {got['K2_kernel_events']}, "
+        f"K5 {got['K5_kernel_events']}; launch counters {got['launches']}")
+    assert got["K1_kernel_events"] and got["K2_kernel_events"]
+    assert got["K5_kernel_events"]
+    if got["matplotlib"]:
+        log(f"  debug_plot: {got['debug_pngs']}")
+        assert got["debug_pngs"] == ["debug_e0_c0_b0.png"]
+    else:
+        log("  debug_plot: matplotlib is not importable on this host, so "
+            "the debug plots are skipped and the trace alone is checked")
+    return got
+
+
 def kernel_entry(meta, launches, err, times, library, per, **extra) -> dict:
     t = times["total"] if "total" in times else times
     return dict(
@@ -2798,8 +3218,14 @@ def main() -> int:
         f"({since(t_start)})")
     other_band_paths(result, scene)
     del scene
+    log(f"[4] retrieval: cli.retrieve over 1,920 patches ({since(t_start)})")
+    compare_embeddings = retrieval_path(result)
 
-    log(f"[5] training path ({since(t_start)})")
+    log(f"[5] training path ({since(t_start)}); first one traced epoch "
+        "(profile_dir, debug_plot) in a process of its own, while the CPU "
+        "computes phase 4's reference embeddings")
+    result["trace_train"] = trace_train_in_child()
+    compare_embeddings()
     with tempfile.TemporaryDirectory() as ckpts:
         ckpts = Path(ckpts)
         train_path(result)
@@ -2930,6 +3356,8 @@ def main() -> int:
         "ensemble": result["ensemble"],
         "swin_bands": result["swin_bands"],
         "other_bands": result["other_bands"],
+        "retrieval": result["retrieval"],
+        "trace_train": result["trace_train"],
         "seconds": time.perf_counter() - t_start}
     log(f"chip_smoke: {line['seconds']:.1f} s from start to the result")
     log(smi)
@@ -2943,4 +3371,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase7"]:
         sys.exit(phase7(sys.argv[2]))
+    if sys.argv[1:2] == ["--trace-train"]:
+        sys.exit(trace_train(sys.argv[2]))
     sys.exit(main())

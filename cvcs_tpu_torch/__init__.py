@@ -6,11 +6,11 @@ imports neither ``jax`` nor anything of ``cvcs_tpu``. Entry points run on
 ``device: cpu`` in a config), and raise when no card is present rather
 than running on the CPU unasked.
 
-Ported so far: whole-scene window inference (``infer.engine``,
-``cli.predict``, ``cli.serve``) and training (``cli.train``, ``train``,
-``data.loader``, ``metrics``) of SwinUnet and the U-Nets, with the Swin
-fused window-attention forward and backward (``ops.swin_attn``), the
-fused augmentation (``ops.augment``) and the fused weighted
-cross-entropy (``ops.fused_ce``) as hand-written CUDA kernels. ROADMAP.md
-lists what is still to port.
+Ported so far: the whole model zoo and every single-device entry point
+(``cli.train``, ``cli.evaluate``, ``cli.predict``, ``cli.serve``,
+``cli.esa``, ``cli.retrieve``, ``cli.export``), with the Swin fused
+window-attention forward and backward (``ops.swin_attn``), the fused
+augmentation (``ops.augment``) and the fused weighted cross-entropy
+(``ops.fused_ce``) as hand-written CUDA kernels. ROADMAP.md lists what
+is still to port.
 """

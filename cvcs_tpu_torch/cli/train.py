@@ -3,9 +3,11 @@
 class-balanced loss, per-epoch validation, periodic confusion-matrix
 evaluation, checkpoint and resume.
 
-Runs on the card unless the config says ``device: cpu``. Keys of paths
-the port does not carry yet raise ``NotImplementedError`` naming their
-ROADMAP item.
+Runs on the card unless the config says ``device: cpu``. ``debug_plot``
+draws each chunk's first sample into ``debug/``; ``profile_dir`` writes a
+torch.profiler trace of the training to ``<profile_dir>/trace.json``.
+Keys of paths the port does not carry yet raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from cvcs_tpu_torch.train.checkpoint import latest_checkpoint
 from cvcs_tpu_torch.train.loop import TrainConfig, Trainer
 from cvcs_tpu_torch.train.optim import build_optimizer
 from cvcs_tpu_torch.train.state import TrainState, param_count
+from cvcs_tpu_torch.utils.profiling import trace
 from cvcs_tpu_torch.utils.tables import get_table_cls
 
 # train config keys of paths the port does not run yet -> the ROADMAP item
@@ -33,12 +36,8 @@ UNPORTED_TRAIN_KEYS = {
                     "item 4)",
     "random_tps": "random_tps crops are not yet ported (ROADMAP.md Queue 1 "
                   "item 4)",
-    "debug_plot": "debug plots are not yet ported (ROADMAP.md Queue 1 "
-                  "item 13)",
     "async_checkpoints": "asynchronous checkpoints are not yet ported "
                          "(ROADMAP.md Queue 1 item 6b)",
-    "profile_dir": "profiling is not yet ported (ROADMAP.md Queue 1 "
-                   "item 13)",
 }
 
 
@@ -131,6 +130,7 @@ def build_trainer(config: dict) -> Trainer:
         keep_checkpoints=(int(config["keep_checkpoints"])
                           if config.get("keep_checkpoints") else None),
         grad_accum=int(config.get("grad_accum", 1)),
+        debug_plot=bool(config.get("debug_plot")),
         seed=seed)
     if (train_cfg.eval_downscale > 1
             and int(config["patch_size"]) % train_cfg.eval_downscale):
@@ -157,7 +157,8 @@ def main(argv=None) -> int:
         print("Error in setting up training.")
         return 1
     trainer.install_preemption_handler()
-    trainer.train()
+    with trace(config.get("profile_dir")):
+        trainer.train()
     return 0
 
 

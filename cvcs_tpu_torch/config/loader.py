@@ -1,6 +1,6 @@
-"""YAML config loading and key validation (port of the training,
-evaluation, inference, serve and ESA parts of
-``cvcs_tpu/config/loader.py``)."""
+"""YAML config loading and key validation (port of
+``cvcs_tpu/config/loader.py``, and of ``EXPORT_KEYS`` from
+``cvcs_tpu/cli/export.py``)."""
 
 from __future__ import annotations
 
@@ -44,6 +44,15 @@ ESA_KEYS = {
     "image", "net", "load_checkpoint", "ensemble_config", "patch_size",
     "border_correction", "batch_tiles", "tta", "out_image", "output",
     "num_classes", "precision", "in_channels", "mesh", "device",
+}
+RETRIEVE_KEYS = {
+    "dataset", "patch_size", "net", "load_checkpoint", "pool", "metric",
+    "num_probes", "topk", "images", "num_classes", "seed", "batch_size",
+    "precision", "in_channels", "device",
+}
+EXPORT_KEYS = {
+    "net", "load_checkpoint", "num_classes", "patch_size", "output",
+    "in_channels", "device", "precision", "verbose",
 }
 
 

@@ -14,7 +14,8 @@ import numpy as np
 from cvcs_tpu_torch.data.palette import LABELS, PALETTE, SHORT_LABELS
 
 
-def _pyplot():
+def pyplot():
+    """matplotlib's pyplot on the headless Agg backend, imported now."""
     import matplotlib
 
     matplotlib.use("Agg")
@@ -27,7 +28,7 @@ def plot_confusion(normalized, path: str) -> None:
     """Heatmap of the row-normalised confusion matrix, short class labels
     on both axes (seaborn's heatmap where seaborn and pandas import, as
     the reference draws it; matplotlib's ``imshow`` otherwise)."""
-    plt = _pyplot()
+    plt = pyplot()
     normalized = np.asarray(normalized)
     try:
         import pandas as pd
@@ -61,7 +62,7 @@ def plot_confusion(normalized, path: str) -> None:
 def plot_priors(conf, path: str, sort: bool = True) -> None:
     """Class-share horizontal bars from the confusion rows' supports,
     palette-coloured, each labelled with its pixels in millions."""
-    plt = _pyplot()
+    plt = pyplot()
     conf = np.asarray(conf, np.float64)
     support = conf.sum(axis=1)
     total = support.sum()

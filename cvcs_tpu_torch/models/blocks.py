@@ -16,6 +16,7 @@ take f32 statistics and cast back.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -64,6 +65,13 @@ def conv_transpose_nhwc(x, conv: nn.ConvTranspose2d,
     y = F.conv_transpose2d(x.permute(0, 3, 1, 2), conv.weight.to(dt), bias,
                            conv.stride, padding)
     return y.permute(0, 2, 3, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def sqrt_in(n: int, dtype: torch.dtype) -> float:
+    """sqrt(n) rounded to ``dtype``, as the JAX models take an attention
+    scale (``jnp.sqrt(jnp.asarray(n, dtype))``)."""
+    return float(torch.tensor(float(n), dtype=dtype).sqrt())
 
 
 def linear(x, layer: nn.Linear) -> torch.Tensor:

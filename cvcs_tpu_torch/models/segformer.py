@@ -30,7 +30,6 @@ loads with ``strict=True``.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Sequence
 
 import torch
@@ -39,7 +38,7 @@ from torch import nn
 
 from cvcs_tpu_torch.models.blocks import (SeededDropout, batch_norm,
                                           conv_nhwc, conv_transpose_nhwc,
-                                          layer_norm, linear)
+                                          layer_norm, linear, sqrt_in)
 from cvcs_tpu_torch.ops.resize import resize_bilinear
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -61,12 +60,6 @@ MIT_B0 = MiTConfig((2, 2, 2, 2), (32, 64, 160, 256), (1, 2, 5, 8),
                    decoder_dim=256)
 MIT_B1 = MiTConfig((2, 2, 2, 2), (64, 128, 320, 512), (1, 2, 5, 8))
 MIT_B3 = MiTConfig((3, 4, 18, 3), (64, 128, 320, 512), (1, 2, 5, 8))
-
-
-@functools.lru_cache(maxsize=None)
-def _root(n: int, dtype: torch.dtype) -> float:
-    """sqrt(n) rounded to ``dtype``, as the JAX model takes it."""
-    return float(torch.tensor(float(n), dtype=dtype).sqrt())
 
 
 class _SelfAttention(nn.Module):
@@ -97,7 +90,7 @@ class _SelfAttention(nn.Module):
         k = linear(kv, self.key).reshape(b, -1, self.heads, hd).transpose(1, 2)
         v = linear(kv, self.value).reshape(b, -1, self.heads,
                                            hd).transpose(1, 2)
-        scores = torch.matmul(q, k.transpose(-1, -2)) / _root(hd, dt)
+        scores = torch.matmul(q, k.transpose(-1, -2)) / sqrt_in(hd, dt)
         attn = torch.softmax(scores.float(), dim=-1).to(dt)
         out = torch.matmul(attn, v)
         return out.transpose(1, 2).reshape(b, n, c)

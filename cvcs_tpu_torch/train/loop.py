@@ -4,7 +4,9 @@ The reference's ``train.py:104-169``: a per-epoch scene reshuffle, the
 chunk loop, the per-batch loss appended to the training history, the
 per-epoch learning rate and validation loss, a confusion-matrix
 evaluation every ``precision_evaluation_freq`` epochs, a checkpoint every
-``freq`` epochs, and resume.
+``freq`` epochs, and resume. With ``debug_plot`` the first sample of each
+chunk's first batch is drawn into ``debug/`` under the working directory
+(``utils/debug.py``), as the JAX trainer draws it.
 
 Steps run one by one (the JAX trainer's ``steps_per_call``, a TPU
 dispatch knob, has no counterpart; the train CLI accepts and ignores the
@@ -33,6 +35,9 @@ from cvcs_tpu_torch.train import checkpoint as ckpt_lib
 from cvcs_tpu_torch.train.state import TrainState
 from cvcs_tpu_torch.train.step import (loss_step, predict_step, stats_step,
                                        train_step)
+
+
+DEBUG_DIR = "debug"
 
 
 def downscale_batch(image: torch.Tensor, mask: torch.Tensor, ds: int):
@@ -64,6 +69,7 @@ class TrainConfig:
     grad_accum: int = 1
     eval_downscale: int = 1
     seed: int = 0                        # dropout seed: seed ^ 0xD0
+    debug_plot: bool = False             # draw each chunk's first sample
 
 
 class Trainer:
@@ -170,8 +176,12 @@ class Trainer:
                 chunk = self.train_loader.get_chunk(c)
                 chunk_losses = []
                 last_batch = None
-                for batch in chunk.batches(bs, drop_last=False,
-                                           pad_tail=False):
+                for b_idx, batch in enumerate(chunk.batches(
+                        bs, drop_last=False, pad_tail=False)):
+                    if cfg.debug_plot and b_idx == 0:
+                        from cvcs_tpu_torch.utils.debug import debug_plot
+                        debug_plot(DEBUG_DIR, epoch, c, b_idx,
+                                   batch.image, batch.mask)
                     n = batch.image.shape[0]
                     accum = cfg.grad_accum if n % cfg.grad_accum == 0 else 1
                     chunk_losses.append(train_step(

@@ -1,12 +1,13 @@
-"""Carry JAX SwinUNet, UNet, DeepLabV3 and SegFormer variables into the
-port.
+"""Carry JAX SwinUNet, UNet, DeepLabV3, SegFormer and ViT variables into
+the port, and load DINO checkpoints.
 
 :func:`swin_state_dict`, :func:`unet_state_dict`,
-:func:`deeplab_state_dict` and :func:`segformer_state_dict` turn the JAX
-parameter tree plus ``batch_stats`` (nested dicts of numpy arrays, flax
-module names) into the port's ``state_dict`` under the torch names — the
-same names and values that ``cvcs_tpu.utils.torch_export.export_swin``,
-``export_unet``, ``export_deeplab`` and ``export_segformer`` write, so
+:func:`deeplab_state_dict`, :func:`segformer_state_dict` and
+:func:`vit_state_dict` turn the JAX parameter tree plus ``batch_stats``
+(nested dicts of numpy arrays, flax module names) into the port's
+``state_dict`` under the torch names — the same names and values that
+``cvcs_tpu.utils.torch_export.export_swin``, ``export_unet``,
+``export_deeplab``, ``export_segformer`` and ``export_vit`` write, so
 either source loads with ``strict=True``:
 
 * conv kernels HWIO -> OIHW (a depthwise (kh, kw, 1, C) -> (C, 1, kh,
@@ -321,15 +322,47 @@ def segformer_state_dict(variables: dict, depths=(3, 4, 18, 3),
     return w.sd
 
 
+def vit_state_dict(variables: dict, depth: int = 12) -> dict:
+    """JAX ViT ``{"params"}`` -> port state dict under DINO's names, the
+    names and values ``export_vit`` writes."""
+    w = _Writer(variables)
+    w.sd["cls_token"] = _f32(w.params["cls_token"])
+    w.sd["pos_embed"] = _f32(w.params["pos_embed"])
+    w.conv(("Conv_0",), "patch_embed.proj")
+    for i in range(depth):
+        base, blk = f"blocks.{i}", (f"ViTBlock_{i}",)
+        w.ln(blk + ("LayerNorm_0",), f"{base}.norm1")
+        w.dense(blk + ("Dense_0",), f"{base}.attn.qkv")
+        w.dense(blk + ("Dense_1",), f"{base}.attn.proj")
+        w.ln(blk + ("LayerNorm_1",), f"{base}.norm2")
+        w.dense(blk + ("Dense_2",), f"{base}.mlp.fc1")
+        w.dense(blk + ("Dense_3",), f"{base}.mlp.fc2")
+    w.ln(("LayerNorm_0",), "norm")
+    return w.sd
+
+
+def load_dino(model, path):
+    """Load a DINO torch.hub checkpoint (a ``.pth`` state dict, or one
+    wrapped under ``"state_dict"``) into a port ``ViT`` (strict)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
 def load_jax_variables(model, variables: dict):
     """Load JAX variables into a port ``SwinUNet``, ``UNet``,
-    ``DeepLabV3`` or ``SegFormer`` (strict)."""
+    ``DeepLabV3``, ``SegFormer`` or ``ViT`` (strict)."""
     from cvcs_tpu_torch.models.deeplab import DeepLabV3
     from cvcs_tpu_torch.models.segformer import SegFormer
     from cvcs_tpu_torch.models.swin import SwinUNet
     from cvcs_tpu_torch.models.unet import UNet
+    from cvcs_tpu_torch.models.vit import ViT
 
-    if isinstance(model, SwinUNet):
+    if isinstance(model, ViT):
+        sd = vit_state_dict(variables, model.depth)
+    elif isinstance(model, SwinUNet):
         sd = swin_state_dict(variables, model.depths)
     elif isinstance(model, SegFormer):
         sd = segformer_state_dict(variables, model.config.depths,

@@ -94,6 +94,20 @@ def test_entry_points_refuse_the_cpu_unasked(no_card, tmp_path):
     assert seg.predict_scene(np.zeros((32, 64, 3), np.uint8)).shape == (32, 64)
 
 
+def test_retrieve_and_export_refuse_the_cpu_unasked(no_card, tmp_path):
+    from cvcs_tpu_torch.cli import export, retrieve
+
+    assert {"cvcs_tpu_torch.cli.retrieve", "cvcs_tpu_torch.cli.export",
+            "cvcs_tpu_torch.models.vit", "cvcs_tpu_torch.retrieval.scores",
+            "cvcs_tpu_torch.retrieval.features", "cvcs_tpu_torch.utils.debug",
+            "cvcs_tpu_torch.utils.profiling"} <= set(MODULES)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        retrieve.retrieve(dict(dataset=str(tmp_path), patch_size=32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export.export(dict(net="SwinUnetTiny", load_checkpoint="x",
+                           output=str(tmp_path / "o.pt")))
+
+
 def test_kernel_wrapper_has_no_fallback_off_cpu():
     """A tensor on another device is refused, never run by the plain
     version: only a CPU tensor takes it."""
