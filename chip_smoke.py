@@ -119,7 +119,27 @@ Phases (any failure raises and the script exits non-zero):
    K5 beside their first designs, in turns (old, new, new, old) and
    traced by CUDA kernel, K5 on a 160-patch chunk and on a GID15-sized
    chunk of 1,920, and the whole fused augmentation preset per chunk
-   split into K5, the uint8 rounding and the masks' gather.
+   split into K5, the uint8 rounding and the masks' gather;
+8. contexts, ``random_tps`` crops and checkpoint interop: one chunk of two
+   6800 x 7200 scenes at p 224 through ``get_chunk`` with
+   ``load_context``, ``random_shift`` and ``random_tps`` [[448, 0.1],
+   [300, 0.1]] (its ms by CUDA events and its peak memory), whose tiles,
+   crops and contexts must equal the CPU port's from the same draws
+   within one level (a worker thread computes those meanwhile; the share
+   of values that differ is printed) and whose masks must be equal;
+   full-width SwinUnet through ``cli.train`` with phase 5's geometry plus
+   ``load_context``, those ``random_tps`` and ``async_checkpoints`` for 2
+   epochs, then a third resumed with ``load_checkpoint: auto``: K1 and K2
+   12 times a step, K5 once a chunk, each checkpoint equal bit for bit to
+   a copy of the state taken when its save was issued, the seconds the
+   saves cost the training thread and the epoch rate printed; Unetv2,
+   Resnet101, MobileNet and SegformerMod of seeded random weights saved
+   as native ``.pt`` files and as reference 12-key pickles (wrapper
+   prefixes, numpy arrays, an unknown metric class), each evaluated by
+   ``cli.evaluate`` on the 80 validation patches from both, with equal
+   confusion matrices; whether ``tensorstore`` imports here (where it
+   does not, the Orbax reader's ImportError names
+   ``python -m cvcs_tpu.cli.export``).
 
 The last two lines are a JSON object of per-kernel numbers and the
 result line ``{"ok": true, "device": {...}}``; before them, the
@@ -128,7 +148,9 @@ seconds the run took and the card's name and power limit.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import io
 import json
 import math
 import re
@@ -1503,15 +1525,16 @@ def vit_flops(variant: str) -> float:
     return v["depth"] * (24 * t * d * d + 4 * t * t * d)
 
 
-def retrieval_dataset(root: Path) -> str:
-    """Two 6720 x 7168 scenes (uncompressed TIFF, so decoding is a copy)
-    with labels in 112 x 112 blocks, seeded: 1,920 patches at p 224."""
+def retrieval_dataset(root: Path, shape=RETRIEVAL_SCENE) -> str:
+    """Two 6720 x 7168 scenes (or ``shape``; uncompressed TIFF, so
+    decoding is a copy) with labels in 112 x 112 blocks, seeded: 1,920
+    patches at p 224."""
     from PIL import Image
 
     (root / "Image__8bit_NirRGB").mkdir(parents=True)
     (root / "Annotation__index").mkdir()
     rng = np.random.default_rng(40)
-    h, w = RETRIEVAL_SCENE
+    h, w = shape
     b = RETRIEVAL_BLOCK
     for i in range(2):
         Image.fromarray(synthetic_scene(h, w, 40 + i)).save(
@@ -2947,6 +2970,31 @@ def deeplab_correctness(result: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def evaluate_confusion(cfg: dict) -> tuple[dict, np.ndarray, float]:
+    """``cli.evaluate`` on ``cfg``: its metric dict, the confusion matrix
+    it scored (caught at ``print_metrics``) and its seconds."""
+    from cvcs_tpu_torch.cli import evaluate as evaluate_cli
+    from cvcs_tpu_torch.metrics import scores
+
+    confs = []
+    print_metrics = scores.print_metrics
+
+    def record(conf, *a, **kw):
+        confs.append(np.asarray(conf))
+        return print_metrics(conf, *a, **kw)
+
+    scores.print_metrics = record
+    try:
+        t0 = time.perf_counter()
+        ev = evaluate_cli.evaluate(cfg)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        scores.print_metrics = print_metrics
+    assert len(confs) == 1
+    return ev, confs[0], secs
+
+
 def ensemble_path(result: dict, ckpts: Path) -> None:
     """The four-member ensemble of ``configs/ensemble_test.yaml`` (Unetv2,
     Resnet101, MobileNet, SegformerMod), each member the checkpoint the
@@ -2958,10 +3006,8 @@ def ensemble_path(result: dict, ckpts: Path) -> None:
     import yaml
 
     from cvcs_tpu_torch.cli import common
-    from cvcs_tpu_torch.cli import evaluate as evaluate_cli
     from cvcs_tpu_torch.data.loader import ChunkLoader
     from cvcs_tpu_torch.infer import InferenceConfig, SceneSegmenter
-    from cvcs_tpu_torch.metrics import scores
 
     members = {"Unetv2": ckpts / "Unetv2" / f"checkpoint{TRAIN_EPOCHS}",
                "Resnet101": ckpts / "Resnet101" / f"checkpoint{TRAIN_EPOCHS}",
@@ -2978,22 +3024,8 @@ def ensemble_path(result: dict, ckpts: Path) -> None:
                    net="Ensemble", ensemble_config=str(member_map),
                    patch_size=224, num_classes=15, precision="bf16",
                    ignore_background=True, batch_size=8)
-        confs = []
-        print_metrics = scores.print_metrics
-
-        def record(conf, *a, **kw):
-            confs.append(np.asarray(conf))
-            return print_metrics(conf, *a, **kw)
-
-        scores.print_metrics = record
-        try:
-            reset_counts()
-            t0 = time.perf_counter()
-            ev = evaluate_cli.evaluate(cfg)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-        finally:
-            scores.print_metrics = print_metrics
+        reset_counts()
+        ev, conf, secs = evaluate_confusion(cfg)
         assert not any(kernel_counts().values())
 
         device = torch.device("cuda")
@@ -3020,7 +3052,7 @@ def ensemble_path(result: dict, ckpts: Path) -> None:
         keep = (target > 0) & (target < NC)     # ignore_background
         want = np.zeros((NC, NC), np.int64)
         np.add.at(want, (target[keep], vote[keep]), 1)
-        same = len(confs) == 1 and np.array_equal(confs[0], want)
+        same = np.array_equal(conf, want)
         log(f"  cli.evaluate net: Ensemble ({', '.join(members)}) on the "
             f"validation scene (80 patches) in {secs:.2f} s: mIoU "
             f"{ev['mIoU']:.6f}; confusion matrix equal to the host vote of "
@@ -3051,6 +3083,356 @@ def ensemble_path(result: dict, ckpts: Path) -> None:
         del ens, seg
     result["ensemble"] = out
     torch.cuda.empty_cache()
+
+
+# -- checkpoint interop, context windows and random_tps -------------------------
+TPS = [[448, 0.1], [300, 0.1]]     # random_tps: [crop size, share of tiles]
+CONTEXT_SCENE = (6800, 7200)       # GID15's scene: 30 x 32 tiles at p 224
+CONTEXT_OFF = 0.01                 # card vs CPU: share of values one level apart
+INTEROP_NETS = ("Unetv2", "Resnet101", "MobileNet", "SegformerMod")
+# train steps of one epoch: 160 tiles + 2 x 16 tps crops in batches of 10
+TPS_STEPS = -(-(160 + 2 * 16) // B_TRAIN)
+
+
+class ConfusionMetric:
+    """Stands in for the reference's confusion-metric objects: a class the
+    port's checkpoint loader has never heard of."""
+
+    def __init__(self, mat):
+        self.mat = mat
+
+
+def cpu_clone(obj):
+    """``obj`` with every tensor copied to the CPU (a synchronous copy)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().clone()
+    if isinstance(obj, dict):
+        return {k: cpu_clone(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(cpu_clone(v) for v in obj)
+    return obj
+
+
+def tensors_equal(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and torch.equal(a.cpu(), b.cpu()))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(tensors_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(tensors_equal, a, b))
+    return a == b
+
+
+def context_chunk(tmp: Path):
+    """One chunk of two 6800 x 7200 scenes at p 224 through ``get_chunk``
+    on the card with ``load_context``, ``random_shift`` and ``TPS``: its
+    ms (CUDA events; a fresh loader after a warm-up one), of which the
+    scenes' decode, padding and upload alone (host clock, another fresh
+    loader), and its peak device memory. Nothing else runs meanwhile.
+    Returns the numbers and a function that starts the CPU port's chunk
+    from the same draws on a worker thread and returns another that holds
+    the card's chunk against it."""
+    from cvcs_tpu_torch.data.loader import ChunkLoader
+
+    root = retrieval_dataset(tmp / "scenes", CONTEXT_SCENE)
+    kw = dict(chunk_size=2, patch_size=224, random_shift=True,
+              load_context=True, seed=7)
+    ChunkLoader(root, device="cuda", **kw).get_chunk(0, TPS)    # warm-up
+    loader = ChunkLoader(root, device="cuda", **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    chunk = loader.get_chunk(0, TPS)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    other = ChunkLoader(root, device="cuda", **kw)
+    t0 = time.perf_counter()
+    scenes = other._load_scene_stack(other.chunks[0], other._pad())
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    del scenes, other
+    n = len(chunk)
+    log(f"  get_chunk: 2 scenes {CONTEXT_SCENE[0]}x{CONTEXT_SCENE[1]} at p "
+        f"224, load_context, random_shift, random_tps {TPS}: {n} patches "
+        f"({2 * loader.tpi} tiles + crops) with {len(chunk.contexts)} "
+        f"contexts in {ms:.1f} ms (CUDA events), of which the scenes' "
+        f"decode, padding and upload {load_ms:.1f} ms (host clock); peak "
+        f"device memory {peak_gb:.2f} GB above the {held / 1e9:.2f} GB "
+        "held before")
+    assert n == 2 * loader.tpi + sum(int(f * 2 * loader.tpi) for _, f in TPS)
+    out = dict(ms=ms, scene_load_ms=load_ms, peak_gb=peak_gb, patches=n,
+               tiles=2 * loader.tpi)
+
+    def start_cpu():
+        pool = ThreadPoolExecutor(1)
+        on_cpu = pool.submit(
+            lambda: ChunkLoader(root, device="cpu", **kw).get_chunk(0, TPS))
+        pool.shutdown(wait=False)
+        t_cpu = time.perf_counter()
+
+        def compare() -> dict:
+            """``out`` with the share of values that differ."""
+            cpu = on_cpu.result()
+            out["cpu_s"] = time.perf_counter() - t_cpu
+            assert torch.equal(cpu.masks.cuda(), chunk.masks)
+            for what, got, want in (("patches and tps crops", chunk.images,
+                                     cpu.images),
+                                    ("contexts", chunk.contexts,
+                                     cpu.contexts)):
+                diff = (got.int() - want.cuda().int()).abs()
+                worst = int(diff.max())
+                share = float((diff > 0).float().mean())
+                log(f"  card vs CPU port, same draws: {what} at most "
+                    f"{worst} level apart, {share * 100:.4f}% of values "
+                    f"differ (allowed: 1 level on {CONTEXT_OFF * 100:.0f}%);"
+                    " masks equal")
+                assert worst <= 1 and share <= CONTEXT_OFF
+                out[f"{what.split()[0]}_differ_share"] = share
+            return out
+
+        return compare
+
+    return out, start_cpu
+
+
+def context_train_path(tmp: Path) -> dict:
+    """Full-width SwinUnet through ``cli.train`` with the train cell's
+    geometry plus ``load_context``, ``random_tps`` and
+    ``async_checkpoints``: 2 epochs, then a third resumed with
+    ``load_checkpoint: auto``. The counters: K1 and K2 12 times a step
+    (K1 also per validation and evaluation batch), K5 once a chunk. Each
+    asynchronous checkpoint equals, bit for bit, a synchronous copy of
+    the state taken when its save was issued (the next epoch's steps
+    update that state in place while the write runs)."""
+    import yaml
+
+    from cvcs_tpu_torch.cli import train as train_cli
+    from cvcs_tpu_torch.train import checkpoint as ckpt_lib
+
+    data = dict(train=synthetic_dataset(tmp / "train", 2, seed=20),
+                validation=synthetic_dataset(tmp / "val", 1, seed=30))
+    cfg = dict(train_config(data, "SwinUnet", TRAIN_EPOCHS, tmp / "ckpt",
+                            tmp / "metrics.jsonl"),
+               load_context=True, random_tps=TPS, async_checkpoints=True)
+    issued = {}
+    # seconds the training thread spent blocked in wait_for_saves, and in
+    # asynchronous saves outside it (the copy of the state to the host)
+    blocked = {"copy": 0.0, "wait": 0.0}
+    save, wait = ckpt_lib.save_checkpoint, ckpt_lib.wait_for_saves
+
+    def timed_wait():
+        t0 = time.perf_counter()
+        try:
+            wait()
+        finally:
+            blocked["wait"] += time.perf_counter() - t0
+
+    def recording(directory, epoch, state, *a, async_save=False, **kw):
+        if not async_save:
+            return save(directory, epoch, state, *a, **kw)
+        issued[epoch] = cpu_clone(dict(
+            model=state.model.state_dict(),
+            optimizer=state.optimizer.opt.state_dict()))
+        waited, t0 = blocked["wait"], time.perf_counter()
+        out = save(directory, epoch, state, *a, async_save=True, **kw)
+        blocked["copy"] += (time.perf_counter() - t0
+                            - (blocked["wait"] - waited))
+        return out
+
+    path = tmp / "train.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    ckpt_lib.save_checkpoint, ckpt_lib.wait_for_saves = recording, timed_wait
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        assert train_cli.main(["train", str(path)]) == 0
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = kernel_counts()
+    finally:
+        ckpt_lib.save_checkpoint, ckpt_lib.wait_for_saves = save, wait
+    steps = TRAIN_EPOCHS * TPS_STEPS
+    want = dict(K1=12 * (steps + TRAIN_EPOCHS * (VAL_BATCHES + EVAL_BATCHES)),
+                K2=12 * steps, K3=0, K4=0, K5=TRAIN_EPOCHS)
+    metrics = [json.loads(x) for x in
+               (tmp / "metrics.jsonl").read_text().splitlines()]
+    meta = json.loads((tmp / "ckpt" / f"checkpoint{TRAIN_EPOCHS}"
+                       / "meta.json").read_text())
+    losses = meta["training_loss_values"]
+    snap = {e: tensors_equal(
+        {k: v for k, v in torch.load(
+            tmp / "ckpt" / f"checkpoint{e + 1}" / ckpt_lib.STATE,
+            weights_only=True).items() if k != "step"}, issued[e])
+        for e in sorted(issued)}
+    log(f"  cli.train SwinUnet bf16 + load_context + random_tps {TPS} + "
+        f"async_checkpoints, {TRAIN_EPOCHS} epochs x {TPS_STEPS} steps "
+        f"in {secs:.2f} s; epoch 2: {metrics[-1]['patches_per_s']:.1f} "
+        f"patches/s over {metrics[-1]['epoch_s']:.2f} s; losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches {counts} (expected "
+        f"{want}); asynchronous saves: {blocked['copy']:.3f} s in the saves "
+        f"outside the wait (the state's copy to pinned host memory), {blocked['wait']:.3f} s blocked in "
+        f"wait_for_saves; checkpoints equal to the state at issue, bit for "
+        f"bit: {snap}")
+    assert counts == want, counts
+    assert len(losses) == steps and np.isfinite(losses).all()
+    assert snap and all(snap.values())
+
+    cfg.update(epochs=TRAIN_EPOCHS + 1, load_checkpoint="auto",
+               metrics_log=str(tmp / "resume.jsonl"))
+    path.write_text(yaml.safe_dump(cfg))
+    reset_counts()
+    assert train_cli.main(["train", str(path)]) == 0
+    again = json.loads((tmp / "ckpt" / f"checkpoint{TRAIN_EPOCHS + 1}"
+                        / "meta.json").read_text())["training_loss_values"]
+    resumed = kernel_counts()
+    log(f"  resumed with load_checkpoint: auto from checkpoint"
+        f"{TRAIN_EPOCHS}: {len(again)} training losses, the first {steps} "
+        f"the first run's: {again[:steps] == losses}; launches {resumed}")
+    assert again[:steps] == losses and len(again) == steps + TPS_STEPS
+    assert resumed["K2"] == 12 * TPS_STEPS and resumed["K5"] == 1
+    return dict(launches=dict(K1=counts["K1"], K2=counts["K2"],
+                              K5=counts["K5"]),
+                seconds=secs, patches_per_s=metrics[-1]["patches_per_s"],
+                epoch_s=metrics[-1]["epoch_s"], async_copy_s=blocked["copy"],
+                async_wait_s=blocked["wait"], snapshots_equal=snap,
+                first_loss=losses[0], last_loss=losses[-1],
+                resumed_launches=resumed)
+
+
+def reference_layout(sd: dict, net: str) -> dict:
+    """A port state dict as the reference's 12-key checkpoint: the keys
+    under each wrapper's DataParallel prefixes, an optimizer and a
+    scheduler state dict, loss lists, and confusion histories of a numpy
+    array and a metric object."""
+    prefix = "module.model." if net.startswith("Resnet") else "module."
+    weight = torch.nn.Parameter(torch.ones(3))
+    opt = torch.optim.SGD([weight], lr=6e-3, momentum=0.9)
+    conf = np.eye(NC, dtype=np.int64)
+    return {"epoch": 1, "model_state_dict": {prefix + k: v
+                                             for k, v in sd.items()},
+            "optimizer_state_dict": opt.state_dict(),
+            "scheduler_state_dict": torch.optim.lr_scheduler.PolynomialLR(
+                opt, total_iters=20).state_dict(),
+            "training_loss_values": [1.0], "validation_loss_values": [1.0],
+            "macro_precision": [], "weighted_precision": [],
+            "batch_size": B_TRAIN, "conf_flat": [conf],
+            "conf_normalized": [ConfusionMetric(conf.astype(np.float64))],
+            "optimizer": "SGD2"}
+
+
+def reference_pickles(tmp: Path) -> dict:
+    """The four full-width nets of ``configs/ensemble_test.yaml`` from the
+    port's seeded random weights, saved as a native ``.pt`` and as a
+    reference pickle: ``restore_variables`` of the pickle gives the saved
+    tensors bit for bit, and ``cli.evaluate`` (f32) on the 80 validation
+    patches one confusion matrix for both files. cuDNN's deterministic
+    algorithms: at random weights the logits sit near ties, and one that
+    sums in another order moves pixels across them (SegformerMod's
+    matrices differed without it in one full run)."""
+    from cvcs_tpu_torch.cli import common
+
+    data = synthetic_dataset(tmp / "val", 1, seed=30)
+    tmp.mkdir(exist_ok=True)
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for net in INTEROP_NETS:
+            cfg = dict(dataset=data, net=net, patch_size=224, num_classes=15,
+                       precision="f32", ignore_background=True, batch_size=8)
+            model, _, _ = common.build_net(cfg, torch.device("cuda"),
+                                           seed=11)
+            sd = cpu_clone(model.state_dict())
+            native, ref = tmp / f"{net}.pt", tmp / f"{net}_checkpoint"
+            torch.save(sd, native)
+            torch.save(reference_layout(sd, net), ref)
+            with torch.no_grad():
+                for v in model.state_dict().values():
+                    v.zero_()
+            common.restore_variables(dict(cfg, load_checkpoint=str(ref)),
+                                     model)
+            restored = tensors_equal(sd, model.state_dict())
+            del model
+            confs, secs = [], []
+            for path in (native, ref, native):
+                if len(confs) == 2 and np.array_equal(*confs):
+                    break        # a third run only to tell a mismatch apart
+                with contextlib.redirect_stdout(io.StringIO()):
+                    _, conf, t = evaluate_confusion(dict(
+                        cfg, load_checkpoint=str(path)))
+                confs.append(conf)
+                secs.append(t)
+            same = np.array_equal(confs[0], confs[1])
+            if not same:
+                log(f"  {net}: the native .pt twice: "
+                    f"{int(np.abs(confs[0] - confs[2]).sum()) // 2} pixels "
+                    "moved; the pickle against it: "
+                    f"{int(np.abs(confs[0] - confs[1]).sum()) // 2}")
+            log(f"  {net}: the reference pickle ({ref.stat().st_size / 1e6:.1f}"
+                f" MB, {len(sd)} tensors under the wrapper's prefixes) "
+                f"restores them bit for bit: {restored}; cli.evaluate from it"
+                f" in {secs[1]:.2f} s, from the native .pt in {secs[0]:.2f} "
+                f"s: confusion matrices equal: {same} ({int(confs[0].sum())}"
+                " pixels)")
+            assert restored and same
+            out[net] = dict(restored=restored, equal=same, seconds=secs,
+                            pixels=int(confs[0].sum()))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    return out
+
+
+def orbax_case() -> dict:
+    """Whether ``tensorstore`` imports on this host; where it does not, the
+    Orbax reader raises ``ImportError`` naming ``cvcs_tpu.cli.export``."""
+    import importlib.util
+
+    from cvcs_tpu_torch.train import orbax_read
+
+    if importlib.util.find_spec("tensorstore") is not None:
+        log("  Orbax: tensorstore imports on this host; an Orbax directory "
+            "is written only by the JAX package, which this host lacks, so "
+            "the reader is CPU-tested only "
+            "(tests/test_torch_checkpoint_interop.py)")
+        return dict(tensorstore=True)
+    try:
+        orbax_read.read_state_tree("checkpoint1")
+    except ImportError as err:
+        message = str(err)
+    else:
+        raise AssertionError("the Orbax reader ran without tensorstore")
+    log("  Orbax: tensorstore does not import on this host, so the Orbax "
+        "reader is CPU-tested only (tests/test_torch_checkpoint_interop.py);"
+        f" here it raises ImportError: {message}")
+    assert "cvcs_tpu.cli.export" in message
+    return dict(tensorstore=False, message=message)
+
+
+def interop_path(result: dict) -> None:
+    """Phase 8: the context / random_tps chunk, the reference pickles
+    (while the CPU computes its chunk), the SwinUnet training with
+    contexts, tps crops and asynchronous checkpoints, and the Orbax
+    case."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _, start_cpu = context_chunk(tmp / "chunk")
+        # the CPU's chunk is computed beside the pickles' evaluations, and
+        # has landed before the timed training starts
+        compare = start_cpu()
+        out = dict(reference_pickles=reference_pickles(tmp / "pickles"))
+        out["chunk"] = compare()
+        del compare                       # and with it the card's chunk
+        torch.cuda.empty_cache()
+        out["train"] = context_train_path(tmp / "train")
+    out["orbax"] = orbax_case()
+    result["interop"] = out
 
 
 def trace_train(out_path: str) -> int:
@@ -3250,12 +3632,18 @@ def main() -> int:
     k2_times, k5_times = times["k2"], times["k5"]
     k3_times, k4_times = times["k3"], times["k4"]
 
+    log(f"[8] contexts, random_tps, asynchronous checkpoints, reference "
+        f"pickles and Orbax ({since(t_start)})")
+    interop_path(result)
+    il = result["interop"]["train"]["launches"]
+
     tl = result["train"]["launches"]
     ul = result["unet_train"]["launches"]
     sl = result["segformer_train"]["launches"]
     rl = result["deeplab_train"]["resnet101"]["launches"]
     ml = result["deeplab_train"]["mobilenet"]["launches"]
-    k5_paths = dict(swin_train=tl["K5"], segformer_train=sl["K5"],
+    k5_paths = dict(swin_train=tl["K5"], swin_context_tps_train=il["K5"],
+                    segformer_train=sl["K5"],
                     segformer_fused_epoch=sl["K5_fused_epoch"],
                     resnet101_train=rl["K5"],
                     resnet101_fused_epoch=rl["K5_fused_epoch"],
@@ -3270,7 +3658,8 @@ def main() -> int:
                     fullconv=sb["fullconv"]["launches"],
                     fullconv_padded=sb["fullconv_padded"]["launches"],
                     fullconv_chunks=sb["fullconv_chunks"]["launches"],
-                    esa=sb["esa"]["launches"], swin_train=tl["K1"])
+                    esa=sb["esa"]["launches"], swin_train=tl["K1"],
+                    swin_context_tps_train=il["K1"])
 
     # what the per-geometry mask cache (models/swin.py attn_bias) holds on
     # the card at the end of the run: the memory its entries free
@@ -3305,7 +3694,9 @@ def main() -> int:
                      "composite: autograd backward of F.layer_norm + "
                      "F.linear + F.scaled_dot_product_attention + F.linear",
                      f"one SwinUnet train step at p 224, batch {B_TRAIN} "
-                     "(12 launches)", max_scaled_err=k2_scaled),
+                     "(12 launches)", max_scaled_err=k2_scaled,
+                     launches_by_path=dict(swin_train=tl["K2"],
+                                           swin_context_tps_train=il["K2"])),
         kernel_entry(augment.KERNEL, sum(k5_paths.values()), k5_err, k5_times,
                      "composite: torch.flip / torch.rot90 per draw group, "
                      "then the contrast and normalisation ops",
@@ -3358,6 +3749,7 @@ def main() -> int:
         "other_bands": result["other_bands"],
         "retrieval": result["retrieval"],
         "trace_train": result["trace_train"],
+        "interop": result["interop"],
         "seconds": time.perf_counter() - t_start}
     log(f"chip_smoke: {line['seconds']:.1f} s from start to the result")
     log(smi)

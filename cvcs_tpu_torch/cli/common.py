@@ -14,7 +14,10 @@ from cvcs_tpu_torch.core.precision import policy_from_config
 from cvcs_tpu_torch.infer.engine import labels_to_host
 from cvcs_tpu_torch.models import MODEL_REGISTRY, ModelSpec, build_model
 from cvcs_tpu_torch.models.ensemble import Ensemble, EnsembleMember
+from cvcs_tpu_torch.train import orbax_read
 from cvcs_tpu_torch.train.checkpoint import STATE, STATE_KEYS
+from cvcs_tpu_torch.utils import torch_import
+from cvcs_tpu_torch.weights import load_jax_variables, unflatten_npz
 
 # config keys of paths the port does not run yet -> the ROADMAP item; a
 # config naming one raises (fullconv with a mesh raises with the mesh)
@@ -67,45 +70,33 @@ def build_net(config: dict, device=None, seed: int = 0):
 
 def restore_variables(config: dict, model):
     """Overwrite the model's weights from ``config['load_checkpoint']``:
-    a train checkpoint of the port (a ``checkpointN/`` directory, or its
-    ``state.pt``), a port state dict saved with ``torch.save`` (``.pt``),
-    or an ``.npz`` of JAX variables (see :mod:`cvcs_tpu_torch.weights`).
-    The JAX package's Orbax directories (holding ``state/``) are refused."""
+
+    * a train checkpoint of the port (a ``checkpointN/`` directory, or its
+      ``state.pt``) or a port state dict saved with ``torch.save``;
+    * a JAX package Orbax ``checkpointN/`` (holding ``state/``; see
+      :mod:`cvcs_tpu_torch.train.orbax_read`);
+    * an ``.npz`` of JAX variables (see :mod:`cvcs_tpu_torch.weights`);
+    * a reference ``torch.save`` pickle, the 12-key dict with the
+      wrappers' prefixes, for the nets the JAX package imports (see
+      :mod:`cvcs_tpu_torch.utils.torch_import`)."""
     ckpt = config.get("load_checkpoint")
     if not ckpt:
         return model
     path = Path(ckpt)
-    if path.is_dir():
-        if not (path / STATE).is_file():
-            if (path / "state").is_dir():
-                raise NotImplementedError(
-                    f"{ckpt} is an Orbax checkpoint directory of the JAX "
-                    "package; loading those is not yet ported (ROADMAP.md "
-                    "Queue 1 item 6b) — export an .npz of the variables "
-                    "instead")
-            raise FileNotFoundError(f"no {STATE} under {ckpt}")
-        path = path / STATE
-    if path.suffix == ".npz":
-        from cvcs_tpu_torch.weights import load_jax_variables, unflatten_npz
-
+    if path.is_dir() and not (path / STATE).is_file():
+        if not orbax_read.is_orbax_checkpoint(path):
+            raise FileNotFoundError(
+                f"no {STATE} and no Orbax state/ under {ckpt}")
+        load_jax_variables(model, orbax_read.orbax_variables(path))
+    elif path.suffix == ".npz":
         with np.load(path) as arrays:
             load_jax_variables(model, unflatten_npz(arrays))
     else:
-        try:
-            sd = torch.load(path, map_location="cpu", weights_only=True)
-        except Exception as err:
-            raise NotImplementedError(
-                f"{ckpt} is not a cvcs_tpu_torch state dict; reference torch "
-                "checkpoints are not yet imported (ROADMAP.md Queue 1 "
-                "item 6b)") from err
-        if isinstance(sd, dict) and set(sd) == STATE_KEYS:
+        sd = torch_import.load_pickle(path / STATE if path.is_dir() else path)
+        if torch_import.is_reference_checkpoint(sd):
+            sd = torch_import.reference_state_dict(sd, config["net"])
+        elif isinstance(sd, dict) and set(sd) == STATE_KEYS:
             sd = sd["model"]
-        if not (isinstance(sd, dict)
-                and set(sd) == set(model.state_dict())):
-            raise NotImplementedError(
-                f"{ckpt} does not hold this model's state dict; reference "
-                "torch checkpoints are not yet imported (ROADMAP.md Queue 1 "
-                "item 6b)")
         model.load_state_dict(sd, strict=True)
     print(f"Loaded checkpoint {ckpt}", flush=True)
     return model
@@ -115,8 +106,7 @@ def build_ensemble(config: dict, device=None) -> Ensemble:
     """The majority-vote ensemble of an ``ensemble_config`` file, a YAML
     map of net name -> checkpoint (``configs/ensemble_test.yaml``). Each
     member is built on ``device`` and restored from its own checkpoint,
-    anything :func:`restore_variables` takes (a port ``checkpointN/`` or
-    an ``.npz`` of JAX variables), and runs in eval mode."""
+    anything :func:`restore_variables` takes, and runs in eval mode."""
     import yaml
 
     path = config.get("ensemble_config")

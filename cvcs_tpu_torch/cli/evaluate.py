@@ -7,7 +7,10 @@ plots.
 
 ``load_checkpoint`` takes what ``cli/common.py`` ``restore_variables``
 takes: a train checkpoint of the port (``checkpointN/`` or its
-``state.pt``), a port state dict, or an ``.npz`` of JAX variables.
+``state.pt``), a port state dict, an Orbax ``checkpointN/`` of the JAX
+package, an ``.npz`` of JAX variables, or a reference ``torch.save``
+pickle. ``load_context`` loads context windows, which reach a net whose
+spec sets ``requires_context``.
 ``net: Ensemble`` with ``ensemble_config`` (a map of net name ->
 checkpoint) evaluates the members' majority vote, whose labels are used
 as they come. Runs on the card unless the config says ``device: cpu``.
@@ -25,6 +28,7 @@ from cvcs_tpu_torch.config.loader import EVAL_KEYS, validate_keys
 from cvcs_tpu_torch.data.loader import ChunkLoader
 from cvcs_tpu_torch.metrics import confusion as conf_lib
 from cvcs_tpu_torch.metrics import scores
+from cvcs_tpu_torch.train.step import forward
 
 
 def evaluate(config: dict) -> dict:
@@ -53,7 +57,8 @@ def evaluate(config: dict) -> dict:
             chunk = loader.get_chunk(c, shuffle_patches=False)
             conf = conf_lib.confusion_matrix(num_classes, device)
             for batch in chunk.batches(batch_size, drop_last=False):
-                pred = model(batch.image.to(torch.float32))
+                ctx = batch.context if spec.requires_context else None
+                pred = forward(model, batch.image.to(torch.float32), ctx)
                 if spec.returns_logits:
                     pred = pred.argmax(-1)
                 mask = batch.mask

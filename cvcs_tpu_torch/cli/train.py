@@ -6,8 +6,12 @@ evaluation, checkpoint and resume.
 Runs on the card unless the config says ``device: cpu``. ``debug_plot``
 draws each chunk's first sample into ``debug/``; ``profile_dir`` writes a
 torch.profiler trace of the training to ``<profile_dir>/trace.json``.
-Keys of paths the port does not carry yet raise ``NotImplementedError``
-naming their ROADMAP item.
+``load_context`` gives both loaders context windows, ``random_tps`` adds
+multi-scale crops to the training chunks, ``async_checkpoints`` writes
+the epoch checkpoints from a thread, and ``load_checkpoint`` (a path or
+``auto``) resumes from a checkpoint of the port or an Orbax one of the
+JAX package. ``mesh`` over more than one device raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -31,28 +35,21 @@ from cvcs_tpu_torch.utils.profiling import trace
 from cvcs_tpu_torch.utils.tables import get_table_cls
 
 # train config keys of paths the port does not run yet -> the ROADMAP item
+# (a mesh of one device is no mesh and runs)
 UNPORTED_TRAIN_KEYS = {
-    "load_context": "context windows are not yet ported (ROADMAP.md Queue 1 "
-                    "item 4)",
-    "random_tps": "random_tps crops are not yet ported (ROADMAP.md Queue 1 "
-                  "item 4)",
-    "async_checkpoints": "asynchronous checkpoints are not yet ported "
-                         "(ROADMAP.md Queue 1 item 6b)",
+    "mesh": "multi-device training is not yet ported (ROADMAP.md Queue 1 "
+            "item 14)",
 }
 
 
 def reject_unported_train_keys(config: dict, device: torch.device) -> None:
-    for key, why in UNPORTED_TRAIN_KEYS.items():
-        if config.get(key):
-            raise NotImplementedError(f"config key {key!r}: {why}")
     mesh = config.get("mesh") or {}
     # ``data: null`` means every device; one device is no mesh at all
     n_data = mesh.get("data") or (torch.cuda.device_count()
                                   if device.type == "cuda" else 1)
     if mesh and (n_data > 1 or mesh.get("spatial", 1) > 1):
         raise NotImplementedError(
-            "config key 'mesh': multi-device training is not yet ported "
-            "(ROADMAP.md Queue 1 item 14)")
+            f"config key 'mesh': {UNPORTED_TRAIN_KEYS['mesh']}")
 
 
 def build_trainer(config: dict) -> Trainer:
@@ -71,22 +68,27 @@ def build_trainer(config: dict) -> Trainer:
         augment = None
     seed = int(config.get("seed", 0))
     in_channels = int(config.get("in_channels", 3))
+    load_context = bool(config.get("load_context"))
     loader_train = ChunkLoader(
         config["train"], config["chunk_size"],
         patch_size=config["patch_size"],
         random_shift=bool(config.get("random_shift")), augment=augment,
-        in_channels=in_channels, seed=seed, device=device)
+        load_context=load_context, in_channels=in_channels, seed=seed,
+        device=device)
     loader_val = ChunkLoader(
         config["validation"],
         config.get("validation_chunk_size", config["chunk_size"]),
-        patch_size=config["patch_size"], in_channels=in_channels,
-        seed=seed + 1, device=device)
+        patch_size=config["patch_size"], load_context=load_context,
+        in_channels=in_channels, seed=seed + 1, device=device)
     if config.get("debug"):
         # debug: 2 train scenes, 1 validation scene
         loader_train.specify([0, 1])
         loader_val.specify([0])
 
     model, spec, num_classes = common.build_net(config, device, seed=seed)
+    if spec.requires_context and not load_context:
+        raise ValueError(f"net {config['net']!r} reads context windows: set "
+                         "load_context: true")
     optimizer = build_optimizer(config["opt"], model.parameters(),
                                 epochs=config["epochs"])
     state = TrainState(model, optimizer)
@@ -131,6 +133,8 @@ def build_trainer(config: dict) -> Trainer:
                           if config.get("keep_checkpoints") else None),
         grad_accum=int(config.get("grad_accum", 1)),
         debug_plot=bool(config.get("debug_plot")),
+        random_tps=config.get("random_tps"),
+        async_checkpoints=bool(config.get("async_checkpoints")),
         seed=seed)
     if (train_cfg.eval_downscale > 1
             and int(config["patch_size"]) % train_cfg.eval_downscale):

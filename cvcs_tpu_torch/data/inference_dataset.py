@@ -7,9 +7,11 @@ per-patch tools, notebooks and spot checks.
 
 As in the JAX package, and unlike the reference: the scene shape is
 probed, not fixed at 6800 x 7200; ``random_shift=True`` works; the
-border-correction window is centered unless ``bug_parity=True``. Context
-windows are not ported yet: ``load_context=True`` raises, and ``context``
-is None.
+border-correction window is centered unless ``bug_parity=True``. With
+``load_context=True`` (off by default here, on by default in the JAX
+package) ``context`` is the 3p window around the tile resized to p on the
+CPU with the training path's math (``extract.resize_context_host``);
+otherwise it is None.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 
 from cvcs_tpu_torch.data import geometry
+from cvcs_tpu_torch.data.extract import resize_context_host
 from cvcs_tpu_torch.data.reader import SceneDataset
 
 
@@ -34,13 +37,10 @@ class InferenceDataset:
         bug_parity: bool = False,
         seed: int = 0,
     ):
-        if load_context:
-            raise NotImplementedError(
-                "context windows (load_context) are not yet ported to "
-                "cvcs_tpu_torch; see ROADMAP.md Queue 1 item 4 (data)")
         self.scenes = SceneDataset(root)
         self.patch_size = patch_size
         self.border_correction = border_correction
+        self.load_context = load_context
         self.random_shift = random_shift
         self.shift_offset = shift_offset
         self.bug_parity = bug_parity
@@ -79,10 +79,14 @@ class InferenceDataset:
             tly, tlx = geometry.random_shift(tly, tlx, self.shift_offset,
                                              self.rng)
         y, x = tly + pad, tlx + pad
+        context = None
+        if self.load_context:
+            cy, cx, cs = geometry.context_window(y, x, p)
+            context = resize_context_host(img[cy:cy + cs, cx:cx + cs], p)
         padded = None
         if self.border_correction:
             wy, wx, ws = geometry.border_window(
                 y, x, p, self.border_correction,
                 centered=not self.bug_parity)
             padded = img[wy:wy + ws, wx:wx + ws]
-        return img[y:y + p, x:x + p], msk[y:y + p, x:x + p], None, padded
+        return img[y:y + p, x:x + p], msk[y:y + p, x:x + p], context, padded

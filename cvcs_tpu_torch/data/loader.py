@@ -1,14 +1,26 @@
 """Chunked training/eval data loading (port of ``cvcs_tpu/data/loader.py``).
 
 The host decodes a chunk's scenes once (PIL -> numpy uint8), pads them and
-ships them to the device; every crop and augmentation happens there. A
-chunk holds all its patches as contiguous uint8 device tensors and serves
-fixed-shape batches as slices.
+ships them to the device; every crop, resize and augmentation happens
+there. A chunk holds all its patches (the tiles, then the ``random_tps``
+crops) and, with ``load_context``, their context windows as contiguous
+uint8 device tensors, and serves fixed-shape batches as slices.
+
+As in the JAX loader (and the reference): the context and shift paddings
+add; a context is the 3p window around its tile resized to p, is not
+augmented and is permuted with its patch; ``random_tps`` entries
+``[crop size, share of tiles]`` append crops of that size from random
+origins of the chunk's scenes, resized to p, which skip augmentation, and
+whose context is the fixed 3p window at the crop's origin (the
+reference's quirk, kept). Contexts and crops are gathered in slabs of
+``SLAB`` patches, which bounds the f32 working set of their resize (a 3p
+window is nine tiles).
 
 Randomness follows the JAX loader draw for draw: one
 ``np.random.default_rng(seed)`` drives the per-epoch scene shuffle, the
-+-20 px tile shifts and the per-chunk patch permutation, in the same
-order, so for one seed the chunks equal the JAX loader's. Augmentation
++-20 px tile shifts, each ``random_tps`` entry's scene, row and column
+draws and the per-chunk patch permutation, in the same order, so for one
+seed the chunks equal the JAX loader's up to augmentation. Augmentation
 draws come from a ``torch.Generator`` on the device (seeded
 ``seed ^ 0x5EED``); they differ from ``jax.random``'s.
 """
@@ -26,23 +38,30 @@ from cvcs_tpu_torch.data import extract, geometry, reader
 from cvcs_tpu_torch.data.augment import AugmentConfig, augment_chunk
 
 SHIFT_OFFSET = 20  # the reference's +-20 px tile jitter
+SLAB = 256         # patches per context / crop gather
 
 
 @dataclasses.dataclass
 class Batch:
     """One micro-batch on the device, NHWC uint8 imagery."""
 
-    image: torch.Tensor                 # (B, p, p, C) uint8
-    mask: torch.Tensor                  # (B, p, p) int32
-    valid: torch.Tensor | None = None   # (B,) bool, False for padding
+    image: torch.Tensor                   # (B, p, p, C) uint8
+    mask: torch.Tensor                    # (B, p, p) int32
+    context: torch.Tensor | None = None   # (B, p, p, C) uint8
+    valid: torch.Tensor | None = None     # (B,) bool, False for padding
 
 
 class DeviceChunk:
     """A chunk's patches on the device."""
 
-    def __init__(self, images: torch.Tensor, masks: torch.Tensor):
+    def __init__(self, images: torch.Tensor, masks: torch.Tensor,
+                 contexts: torch.Tensor | None = None):
         self.images = images
         self.masks = masks
+        self.contexts = contexts
+
+    def _ctx(self, sl):
+        return None if self.contexts is None else self.contexts[sl]
 
     def __len__(self) -> int:
         return int(self.images.shape[0])
@@ -56,14 +75,14 @@ class DeviceChunk:
         full = n // batch_size
         for b in range(full):
             sl = slice(b * batch_size, (b + 1) * batch_size)
-            yield Batch(self.images[sl], self.masks[sl])
+            yield Batch(self.images[sl], self.masks[sl], self._ctx(sl))
         rem = n - full * batch_size
         if rem and not drop_last:
             if pad_tail:
                 yield self._tail_batch(batch_size, full, rem)
             else:
                 sl = slice(full * batch_size, n)
-                yield Batch(self.images[sl], self.masks[sl])
+                yield Batch(self.images[sl], self.masks[sl], self._ctx(sl))
 
     def _tail_batch(self, batch_size: int, full: int, rem: int) -> Batch:
         n = len(self)
@@ -71,28 +90,25 @@ class DeviceChunk:
         idx = torch.cat([torch.arange(full * batch_size, n, device=dev),
                          torch.zeros(batch_size - rem, dtype=torch.int64,
                                      device=dev)])
-        return Batch(self.images[idx], self.masks[idx],
+        return Batch(self.images[idx], self.masks[idx], self._ctx(idx),
                      valid=torch.arange(batch_size, device=dev) < rem)
 
 
 class ChunkLoader:
-    """Drives chunked loading of a GID15-style dataset root. Context
-    windows (``load_context``) and ``random_tps`` crops raise
-    ``NotImplementedError``."""
+    """Drives chunked loading of a GID15-style dataset root."""
 
     def __init__(self, root: str, chunk_size: int = 2, patch_size: int = 224,
                  random_shift: bool = False,
                  augment: AugmentConfig | None = None,
                  load_context: bool = False, in_channels: int = 3,
                  seed: int = 0, device=None):
-        if load_context:
-            extract.extract_context()
         self.device = resolve_device(device)
         self.dataset = reader.SceneDataset(root)
         self.patch_size = patch_size
         self.chunk_size = chunk_size
         self.random_shift = random_shift
         self.augment = augment
+        self.load_context = load_context
         self.in_channels = in_channels
         self.rng = np.random.default_rng(seed)
         self.aug_gen = torch.Generator(device=self.device).manual_seed(
@@ -128,7 +144,12 @@ class ChunkLoader:
         return reader.class_priors(self.dataset.class_counts(num_classes))
 
     def _pad(self) -> int:
-        return SHIFT_OFFSET + 12 if self.random_shift else 0
+        # the paddings add: a shifted tile sits up to SHIFT_OFFSET outside
+        # the grid, and its context window reaches a patch beyond that
+        pad = self.patch_size if self.load_context else 0
+        if self.random_shift:
+            pad += SHIFT_OFFSET + 12
+        return pad
 
     def _load_scene_stack(self, scene_ids: list[int], pad: int):
         imgs = [self.dataset.load_image(i)[..., :self.in_channels]
@@ -142,9 +163,9 @@ class ChunkLoader:
     def get_chunk(self, c: int, random_tps=None,
                   shuffle_patches: bool = True) -> DeviceChunk:
         """Chunk ``c``'s patches on the device: tiles (shifted when
-        ``random_shift``), augmented when configured, permuted."""
-        if random_tps:
-            extract.extract_resized()
+        ``random_shift``), augmented when configured, then the
+        ``random_tps`` crops, with their contexts when ``load_context``,
+        permuted."""
         scene_ids = self.chunks[c]
         pad = self._pad()
         images, masks = self._load_scene_stack(scene_ids, pad)
@@ -161,13 +182,58 @@ class ChunkLoader:
         p = self.patch_size
         patch_imgs = extract.slice_windows(images, cc, p)
         patch_msks = extract.slice_windows(masks, cc, p)
+        contexts = [self._contexts(images, cc)] if self.load_context else []
         if self.augment is not None:
             patch_imgs, patch_msks = augment_chunk(
                 patch_imgs, patch_msks, self.augment, self.aug_gen)
+        patch_imgs, patch_msks = [patch_imgs], [patch_msks]
+        for aug_size, share in random_tps or ():
+            tc = self._tps_coords(len(coords), aug_size, share,
+                                  len(scene_ids), pad)
+            if tc is None:
+                continue
+            for s in range(0, len(tc), SLAB):
+                img, msk = extract.extract_resized(
+                    images, masks, tc[s:s + SLAB], aug_size, p)
+                patch_imgs.append(img)
+                patch_msks.append(msk)
+            if self.load_context:
+                contexts.append(self._contexts(images, tc))
+        patch_imgs = torch.cat(patch_imgs)
+        patch_msks = torch.cat(patch_msks)
+        contexts = torch.cat(contexts) if contexts else None
         if shuffle_patches:
             perm = torch.from_numpy(
                 self.rng.permutation(patch_imgs.shape[0])).to(self.device)
             patch_imgs = patch_imgs[perm]
             patch_msks = patch_msks[perm]
+            if contexts is not None:
+                contexts = contexts[perm]
         return DeviceChunk(patch_imgs.contiguous(),
-                           patch_msks.to(torch.int32))
+                           patch_msks.to(torch.int32),
+                           None if contexts is None else contexts.contiguous())
+
+    def _contexts(self, images: torch.Tensor, cc: torch.Tensor):
+        """The context windows at ``cc``'s origins, a slab at a time."""
+        return torch.cat([
+            extract.extract_context(images, cc[s:s + SLAB], self.patch_size)
+            for s in range(0, len(cc), SLAB)])
+
+    def _tps_coords(self, n_tiles: int, aug_size: int, share: float,
+                    n_scenes: int, pad: int):
+        """One ``random_tps`` entry's crop origins (padded coordinates) on
+        the device, or None when it asks for no crop; the JAX loader's
+        draws, in its order."""
+        n_extra = int(share * n_tiles)
+        if n_extra == 0:
+            return None
+        h, w = self.image_shape
+        if aug_size >= min(h, w):
+            raise ValueError(f"random_tps size {aug_size} must be smaller "
+                             f"than the scene ({h}x{w})")
+        sc = self.rng.integers(0, n_scenes, size=(n_extra, 1))
+        # origins in [0, h-1-aug_size], the reference's inclusive randint
+        ys = self.rng.integers(0, h - aug_size, size=(n_extra, 1))
+        xs = self.rng.integers(0, w - aug_size, size=(n_extra, 1))
+        tc = np.concatenate([sc, ys + pad, xs + pad], axis=1)
+        return torch.from_numpy(tc.astype(np.int32)).to(self.device)

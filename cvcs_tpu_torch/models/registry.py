@@ -26,8 +26,9 @@ class ModelSpec:
     requires_context: bool = False
     returns_logits: bool = True
     # reference checkpoints of this net were saved through a wrapper whose
-    # keys carry a "module."/"model." prefix (metadata: the reference
-    # checkpoint importer, ROADMAP.md Queue 1 item 6b, will read it)
+    # keys carry a "module."/"model." prefix (metadata: the importer,
+    # utils/torch_import.py, rewrites them by net name, as the JAX
+    # package's does)
     wrapper: bool = False
     # full-convolution divisibility: input H/W must be multiples of this
     # for the forward to return an input-aligned label map

@@ -12,9 +12,22 @@ holding
   does), the optimizer name, and the flat and row-normalised confusion
   histories.
 
-Both files are written to a temporary name and renamed, so a crash never
-leaves a torn checkpoint that :func:`latest_checkpoint` would pick. The
-JAX package's Orbax directories (a ``state/`` directory) are refused.
+Both files are written to a temporary name and renamed, ``meta.json``
+first and ``state.pt`` last, so a checkpoint without ``state.pt`` is one
+still being written (or torn by a crash), and :func:`latest_checkpoint`
+and :func:`prune_checkpoints` pass it by.
+
+``async_save=True`` (the train config's ``async_checkpoints``) copies the
+model's and the optimizer's state to host memory (pinned buffers, one
+synchronisation: torch updates parameters and momentum buffers in place,
+so the next step must not reach the copy) and leaves ``torch.save`` and
+the renames to a writer thread, at most one write in flight;
+:func:`wait_for_saves` blocks until it has landed.
+
+:func:`load_checkpoint` also restores the JAX package's Orbax
+directories (``checkpointN/state/``, see
+:mod:`cvcs_tpu_torch.train.orbax_read`): weights, BatchNorm statistics,
+optimizer state and step, with the same ``meta.json``.
 """
 
 from __future__ import annotations
@@ -23,11 +36,14 @@ import json
 import os
 import re
 import shutil
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Any
 
 import numpy as np
 import torch
+
+from cvcs_tpu_torch.train import orbax_read
 
 _CKPT_RE = re.compile(r"^checkpoint(\d+)(_preempt)?$")
 STATE = "state.pt"
@@ -42,18 +58,67 @@ def _jsonable(x):
     return x
 
 
+_writer: ThreadPoolExecutor | None = None
+_in_flight: Future | None = None
+
+
+def wait_for_saves() -> None:
+    """Block until the write in flight (if any) has landed; re-raise its
+    error."""
+    global _in_flight
+    if _in_flight is not None:
+        pending, _in_flight = _in_flight, None
+        pending.result()
+
+
+def host_copy(obj):
+    """``obj`` with every tensor copied to host memory: CUDA tensors into
+    pinned buffers, enqueued on the current stream and waited for once;
+    CPU tensors cloned."""
+    cuda = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            if x.is_cuda:
+                buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                cuda.append(x.device)
+                return buf.copy_(x.detach(), non_blocking=True)
+            return x.detach().clone()
+        if isinstance(x, dict):
+            return type(x)((k, walk(v)) for k, v in x.items())
+        if isinstance(x, (list, tuple)):
+            return type(x)(walk(v) for v in x)
+        return x
+
+    out = walk(obj)
+    if cuda:
+        torch.cuda.current_stream(cuda[0]).synchronize()
+    return out
+
+
+def _write(path: Path, payload: dict, meta: dict) -> None:
+    tmp = path / "meta.json.tmp"
+    tmp.write_text(json.dumps(meta))
+    os.replace(tmp, path / "meta.json")
+    tmp = path / f"{STATE}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path / STATE)
+
+
 def save_checkpoint(directory: str | Path, epoch: int, state,
                     train_loss: list[float], val_loss: list[float],
                     batch_size: int, optimizer: str, conf_flat: Any = None,
-                    conf_normalized: Any = None, tag: str = "") -> Path:
-    """Write ``<directory>/checkpoint{epoch+1}{tag}``."""
+                    conf_normalized: Any = None, tag: str = "",
+                    async_save: bool = False) -> Path:
+    """Write ``<directory>/checkpoint{epoch+1}{tag}``; with
+    ``async_save`` return once the state is copied to the host, the write
+    going on in a thread (see :func:`wait_for_saves`)."""
+    global _writer, _in_flight
     path = Path(directory) / f"checkpoint{epoch + 1}{tag}"
     path.mkdir(parents=True, exist_ok=True)
-    tmp = path / f"{STATE}.tmp"
-    torch.save({"model": state.model.state_dict(),
-                "optimizer": state.optimizer.opt.state_dict(),
-                "step": state.step}, tmp)
-    os.replace(tmp, path / STATE)
+    payload = {"model": state.model.state_dict(),
+               "optimizer": state.optimizer.opt.state_dict(),
+               "step": state.step}
     meta = {
         "epoch": epoch,
         "training_loss_values": [float(v) for v in train_loss],
@@ -66,29 +131,36 @@ def save_checkpoint(directory: str | Path, epoch: int, state,
         "macro_precision": [],
         "weighted_precision": [],
     }
-    tmp = path / "meta.json.tmp"
-    tmp.write_text(json.dumps(meta))
-    os.replace(tmp, path / "meta.json")
+    wait_for_saves()                      # at most one write in flight
+    # a checkpoint written again is incomplete until its state.pt lands
+    (path / STATE).unlink(missing_ok=True)
+    if not async_save:
+        _write(path, payload, meta)
+        return path
+    payload = host_copy(payload)
+    if _writer is None:
+        _writer = ThreadPoolExecutor(1, thread_name_prefix="checkpoint")
+    _in_flight = _writer.submit(_write, path, payload, meta)
     return path
 
 
 def load_checkpoint(path: str | Path, state):
-    """Restore ``state`` (model, optimizer, step) in place from ``path``;
-    return ``(state, meta)``. A missing or corrupt ``meta.json`` restores
-    the weights with empty metadata, as the reference does for old
+    """Restore ``state`` (model, optimizer, step) in place from ``path``,
+    a checkpoint of the port or an Orbax one of the JAX package; return
+    ``(state, meta)``. A missing or corrupt ``meta.json`` restores the
+    weights with empty metadata, as the reference does for old
     checkpoints."""
     path = Path(path)
-    if not (path / STATE).is_file():
-        if (path / "state").is_dir():
-            raise NotImplementedError(
-                f"{path} is an Orbax checkpoint of the JAX package; loading "
-                "those is not yet ported (ROADMAP.md Queue 1 item 6b)")
-        raise FileNotFoundError(f"no {STATE} under {path}")
-    dev = next(state.model.parameters()).device
-    saved = torch.load(path / STATE, map_location=dev, weights_only=True)
-    state.model.load_state_dict(saved["model"], strict=True)
-    state.optimizer.opt.load_state_dict(saved["optimizer"])
-    state.step = int(saved["step"])
+    if (path / STATE).is_file():
+        dev = next(state.model.parameters()).device
+        saved = torch.load(path / STATE, map_location=dev, weights_only=True)
+        state.model.load_state_dict(saved["model"], strict=True)
+        state.optimizer.opt.load_state_dict(saved["optimizer"])
+        state.step = int(saved["step"])
+    elif orbax_read.is_orbax_checkpoint(path):
+        orbax_read.load_orbax_state(path, state)
+    else:
+        raise FileNotFoundError(f"no {STATE} and no Orbax state/ under {path}")
     meta = {}
     meta_path = path / "meta.json"
     if meta_path.exists():

@@ -6,7 +6,13 @@ per-epoch learning rate and validation loss, a confusion-matrix
 evaluation every ``precision_evaluation_freq`` epochs, a checkpoint every
 ``freq`` epochs, and resume. With ``debug_plot`` the first sample of each
 chunk's first batch is drawn into ``debug/`` under the working directory
-(``utils/debug.py``), as the JAX trainer draws it.
+(``utils/debug.py``), as the JAX trainer draws it. ``random_tps``
+appends each chunk's multi-scale crops (``ChunkLoader.get_chunk``); a net
+whose spec sets ``requires_context`` gets each batch's context windows.
+With ``async_checkpoints`` the epoch-boundary checkpoints are written by a
+thread while training goes on (``train/checkpoint.py``); the loop waits
+for the write in flight before a preemption save and at the end, and
+prunes again once it has landed.
 
 Steps run one by one (the JAX trainer's ``steps_per_call``, a TPU
 dispatch knob, has no counterpart; the train CLI accepts and ignores the
@@ -70,6 +76,8 @@ class TrainConfig:
     eval_downscale: int = 1
     seed: int = 0                        # dropout seed: seed ^ 0xD0
     debug_plot: bool = False             # draw each chunk's first sample
+    random_tps: list | None = None       # [[crop size, share of tiles]]
+    async_checkpoints: bool = False
 
 
 class Trainer:
@@ -127,7 +135,8 @@ class Trainer:
         self.log(f"Resumed from {path} at epoch {self.last_epoch} "
                  f"(batch_size={self.config.batch_size})")
 
-    def _save(self, epoch: int, tag: str = "", confusions: bool = True):
+    def _save(self, epoch: int, tag: str = "", confusions: bool = True,
+              async_save: bool = False):
         cfg = self.config
         hist = self.conf_history if confusions else None
         path = ckpt_lib.save_checkpoint(
@@ -138,7 +147,7 @@ class Trainer:
                                                  for m in hist],
             conf_normalized=None if hist is None else [
                 confusion.normalize_rows(m).tolist() for m in hist],
-            tag=tag)
+            tag=tag, async_save=async_save)
         if cfg.keep_checkpoints:
             for old in ckpt_lib.prune_checkpoints(cfg.checkpoint_directory,
                                                   cfg.keep_checkpoints):
@@ -161,6 +170,10 @@ class Trainer:
                 "config); resume from the last checkpoint with a safer "
                 "schedule")
 
+    def _context(self, batch):
+        """The batch's context windows for a net that reads them."""
+        return batch.context if self.spec.requires_context else None
+
     def train(self) -> TrainState:
         cfg = self.config
         bs = cfg.batch_size
@@ -173,7 +186,7 @@ class Trainer:
             n_train_before = len(self.training_loss_values)
             pending = None
             for c in range(len(self.train_loader)):
-                chunk = self.train_loader.get_chunk(c)
+                chunk = self.train_loader.get_chunk(c, cfg.random_tps)
                 chunk_losses = []
                 last_batch = None
                 for b_idx, batch in enumerate(chunk.batches(
@@ -186,16 +199,20 @@ class Trainer:
                     accum = cfg.grad_accum if n % cfg.grad_accum == 0 else 1
                     chunk_losses.append(train_step(
                         self.state, self.loss_fn, batch.image, batch.mask,
-                        accum=accum, update_stats=cfg.bn_exact_stats))
+                        accum=accum, update_stats=cfg.bn_exact_stats,
+                        context=self._context(batch)))
                     n_patches += n
                     last_batch = batch
                 if not cfg.bn_exact_stats and last_batch is not None:
-                    stats_step(self.state, last_batch.image)
+                    stats_step(self.state, last_batch.image,
+                               self._context(last_batch))
                 if pending is not None:
                     self._harvest(pending, epoch)
                 pending = chunk_losses
                 if self._preempted:
                     self._harvest(pending, epoch)
+                    # the boundary save in flight may target this directory
+                    ckpt_lib.wait_for_saves()
                     self._save(epoch - 1, tag="_preempt", confusions=False)
                     self.log(f"Preemption save: epoch {epoch + 1} interrupted"
                              f" after chunk {c + 1}; wrote checkpoint{epoch}"
@@ -234,15 +251,22 @@ class Trainer:
 
             saved = (epoch + 1) % cfg.freq == 0
             if saved:
-                self._save(epoch)
+                self._save(epoch, async_save=cfg.async_checkpoints)
                 self.log(f"Saved checkpoint {epoch + 1}")
             if self._preempted:
+                ckpt_lib.wait_for_saves()
                 if not saved:
                     self._save(epoch)
                 self.log(f"Preemption save: stopped after completed epoch "
                          f"{epoch + 1}; wrote checkpoint{epoch + 1}")
                 return self.state
 
+        ckpt_lib.wait_for_saves()
+        if cfg.keep_checkpoints:
+            # the in-loop prunes pass an in-flight write by; now it has landed
+            for old in ckpt_lib.prune_checkpoints(cfg.checkpoint_directory,
+                                                  cfg.keep_checkpoints):
+                self.log(f"Pruned {old.name}")
         self.log("Training Done!")
         if self.training_loss_values:
             self.log(f"Reached training loss: {self.training_loss_values[-1]}")
@@ -260,7 +284,8 @@ class Trainer:
             for batch in chunk.batches(self.config.batch_size,
                                        drop_last=False, pad_tail=False):
                 values.append(loss_step(self.state, self.loss_fn,
-                                        batch.image, batch.mask))
+                                        batch.image, batch.mask,
+                                        self._context(batch)))
         return torch.stack(values).cpu().tolist() if values else []
 
     def evaluate(self, num_classes: int = 16, batch_size: int = 8,
@@ -279,7 +304,8 @@ class Trainer:
                 if downscale > 1:
                     image, mask = downscale_batch(image, mask, downscale)
                 pred = predict_step(self.state, image,
-                                    self.spec.returns_logits)
+                                    self.spec.returns_logits,
+                                    self._context(batch))
                 if batch.valid is not None:
                     # padding samples: an out-of-range target drops them
                     mask = torch.where(batch.valid[:, None, None], mask,

@@ -22,6 +22,11 @@ Dropout (SegFormer's and DeepLab's heads) draws from generators seeded from
 port of the JAX step's ``fold_in(dropout_key, step)``; micro-batches draw
 in turn. The statistics refresh draws from seed 0, as the JAX one does;
 the validation-loss and predict steps run in eval mode and draw nothing.
+
+``context`` (uint8 context windows in the patches' order, or None) reaches
+the model, cast to f32 beside the image, only when given: the trainer and
+the evaluation CLI give it to a net whose ``ModelSpec.requires_context``
+is set, as the JAX steps do.
 """
 
 from __future__ import annotations
@@ -63,8 +68,16 @@ def frozen_bn_stats(model: torch.nn.Module, frozen: bool = True):
                 buf.copy_(value)
 
 
+def forward(model, x: torch.Tensor, context=None) -> torch.Tensor:
+    """``model(x)``, or ``model(x, context)`` with the context cast to
+    f32."""
+    if context is None:
+        return model(x)
+    return model(x, context.to(torch.float32))
+
+
 def train_step(state: TrainState, loss_fn, image, mask, *, accum: int = 1,
-               update_stats: bool = True) -> torch.Tensor:
+               update_stats: bool = True, context=None) -> torch.Tensor:
     """One optimizer update on the batch; returns the loss (a 0-d tensor
     on the device, not synchronised)."""
     model = state.model
@@ -78,13 +91,15 @@ def train_step(state: TrainState, loss_fn, image, mask, *, accum: int = 1,
     seed_dropout(model, state.dropout_seed, state.step)
     with frozen_bn_stats(model, frozen=not update_stats):
         if accum == 1:
-            loss = loss_fn(model(x), mask)
+            loss = loss_fn(forward(model, x, context), mask)
             loss.backward()
             loss = loss.detach()
         else:
             loss = torch.zeros((), dtype=torch.float32, device=x.device)
-            for xi, mi in zip(x.chunk(accum), mask.chunk(accum)):
-                micro = loss_fn(model(xi), mi)
+            ctxs = (context.chunk(accum) if context is not None
+                    else [None] * accum)
+            for xi, mi, ci in zip(x.chunk(accum), mask.chunk(accum), ctxs):
+                micro = loss_fn(forward(model, xi, ci), mi)
                 micro.backward()
                 loss = loss + micro.detach()
             for p in model.parameters():
@@ -98,28 +113,30 @@ def train_step(state: TrainState, loss_fn, image, mask, *, accum: int = 1,
 
 
 @torch.no_grad()
-def stats_step(state: TrainState, image) -> None:
+def stats_step(state: TrainState, image, context=None) -> None:
     """BatchNorm running-statistics refresh: one train-mode forward whose
     only effect is the statistics update (the companion of
     ``update_stats=False``)."""
     state.model.train()
     seed_dropout(state.model, 0)
-    state.model(image.to(torch.float32))
+    forward(state.model, image.to(torch.float32), context)
 
 
 @torch.inference_mode()
-def loss_step(state: TrainState, loss_fn, image, mask) -> torch.Tensor:
+def loss_step(state: TrainState, loss_fn, image, mask,
+              context=None) -> torch.Tensor:
     """Validation loss: eval-mode forward, loss on the f32 logits."""
     state.model.eval()
-    return loss_fn(state.model(image.to(torch.float32)), mask)
+    return loss_fn(forward(state.model, image.to(torch.float32), context),
+                   mask)
 
 
 @torch.inference_mode()
-def predict_step(state: TrainState, image,
-                 returns_logits: bool = True) -> torch.Tensor:
+def predict_step(state: TrainState, image, returns_logits: bool = True,
+                 context=None) -> torch.Tensor:
     """Eval-mode forward -> int32 label map."""
     state.model.eval()
-    out = state.model(image.to(torch.float32))
+    out = forward(state.model, image.to(torch.float32), context)
     if returns_logits:
         out = out.argmax(-1)
     return out.to(torch.int32)

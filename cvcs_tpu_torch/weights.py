@@ -351,9 +351,10 @@ def load_dino(model, path):
     return model
 
 
-def load_jax_variables(model, variables: dict):
-    """Load JAX variables into a port ``SwinUNet``, ``UNet``,
-    ``DeepLabV3``, ``SegFormer`` or ``ViT`` (strict)."""
+def jax_state_dict(model, variables: dict) -> dict:
+    """JAX variables -> the state dict of a port ``SwinUNet``, ``UNet``,
+    ``DeepLabV3``, ``SegFormer`` or ``ViT`` (the bridge for the model's
+    class)."""
     from cvcs_tpu_torch.models.deeplab import DeepLabV3
     from cvcs_tpu_torch.models.segformer import SegFormer
     from cvcs_tpu_torch.models.swin import SwinUNet
@@ -361,19 +362,22 @@ def load_jax_variables(model, variables: dict):
     from cvcs_tpu_torch.models.vit import ViT
 
     if isinstance(model, ViT):
-        sd = vit_state_dict(variables, model.depth)
-    elif isinstance(model, SwinUNet):
-        sd = swin_state_dict(variables, model.depths)
-    elif isinstance(model, SegFormer):
-        sd = segformer_state_dict(variables, model.config.depths,
-                                  model.config.sr_ratios)
-    elif isinstance(model, UNet):
-        sd = unet_state_dict(variables, model.upsample)
-    elif isinstance(model, DeepLabV3):
-        sd = deeplab_state_dict(variables, model.backbone_name)
-    else:
-        raise TypeError(f"no JAX weight bridge for {type(model).__name__}")
-    model.load_state_dict(sd, strict=True)
+        return vit_state_dict(variables, model.depth)
+    if isinstance(model, SwinUNet):
+        return swin_state_dict(variables, model.depths)
+    if isinstance(model, SegFormer):
+        return segformer_state_dict(variables, model.config.depths,
+                                    model.config.sr_ratios)
+    if isinstance(model, UNet):
+        return unet_state_dict(variables, model.upsample)
+    if isinstance(model, DeepLabV3):
+        return deeplab_state_dict(variables, model.backbone_name)
+    raise TypeError(f"no JAX weight bridge for {type(model).__name__}")
+
+
+def load_jax_variables(model, variables: dict):
+    """Load JAX variables into a port model (strict)."""
+    model.load_state_dict(jax_state_dict(model, variables), strict=True)
     return model
 
 

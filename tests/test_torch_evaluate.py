@@ -13,8 +13,9 @@ CPU.
 * ``print_metrics`` prints the reference's two tables exactly as the JAX
   package does and returns the same dict; ``silent`` prints nothing.
 * ``plot_confusion`` and ``plot_priors`` write their files (matplotlib).
-* With no card and no ``device: cpu`` the entry point raises, as do
-  ``mesh`` and ``load_context`` (not yet ported).
+* With no card and no ``device: cpu`` the entry point raises, as does
+  ``mesh`` (not yet ported); ``load_context: true`` evaluates, with the
+  same metrics as without (SwinUnetTiny reads no context).
 """
 
 from pathlib import Path
@@ -130,5 +131,6 @@ def test_evaluate_refuses(tmp_path):
             tevaluate.evaluate(cfg)
     with pytest.raises(NotImplementedError, match="item 14"):
         tevaluate.evaluate(dict(cfg, device="cpu", mesh={"data": 2}))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tevaluate.evaluate(dict(cfg, device="cpu", load_context=True))
+    plain = tevaluate.evaluate(dict(cfg, device="cpu"))
+    assert tevaluate.evaluate(dict(cfg, device="cpu",
+                                   load_context=True)) == plain

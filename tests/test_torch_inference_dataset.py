@@ -4,7 +4,9 @@ and, for indices across scenes (and back, through the single-scene
 cache), the patch, the index mask and the border-corrected padded patch
 must be equal (uint8, exact), centered, with ``bug_parity`` and with
 ``random_shift`` (both draw from ``np.random.default_rng(seed)`` in the
-same order). Context windows are not ported: asking for them raises.
+same order). With ``load_context=True`` the context windows (3p
+resized to p on the CPU) agree with the JAX package's within one level,
+on all but a stated share of the values.
 """
 
 import numpy as np
@@ -39,6 +41,28 @@ def test_items_equal_jax(gid15_root, kw):
         assert got[0].shape == (P, P, 3) and got[1].shape == (P, P)
 
 
+# contexts: at most one level apart, on at most this share of the values
+# (0.0093% differed when this was written: the two frameworks' f32
+# filters sum in different orders, and a value next to a .5 can round the
+# other way)
+CONTEXT_OFF_BY_ONE = 0.01
+
+
 def test_context_request_raises(gid15_root):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        InferenceDataset(str(gid15_root), patch_size=P, load_context=True)
+    """The context windows that ``load_context=True`` once refused, now
+    against JAX's, with ``random_shift`` (corner tiles reach the
+    padding) and the rest of each item unchanged."""
+    kw = dict(patch_size=P, border_correction=48, random_shift=True, seed=5)
+    ds = InferenceDataset(str(gid15_root), load_context=True, **kw)
+    ref = JaxDataset(str(gid15_root), load_context=True, **kw)
+    off = []
+    for i in INDICES:
+        got, want = ds[i], ref[i]
+        assert got[2].dtype == want[2].dtype == np.uint8
+        assert got[2].shape == want[2].shape == (P, P, 3)
+        diff = np.abs(got[2].astype(int) - want[2].astype(int))
+        assert diff.max() <= 1, i
+        off.append((diff > 0).mean())
+        for k in (0, 1, 3):
+            np.testing.assert_array_equal(got[k], want[k])
+    assert np.mean(off) <= CONTEXT_OFF_BY_ONE

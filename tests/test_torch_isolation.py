@@ -1,9 +1,12 @@
 """The port stands alone, and never runs on the CPU unasked.
 
 * A fresh interpreter imports every ``cvcs_tpu_torch`` module; neither
-  ``jax`` nor the JAX package (``cvcs_tpu`` or ``cvcs_tpu.*`` — the port's
-  own name starts with the same letters) may be loaded after.
-* A source scan finds no jax / flax import and no ``cvcs_tpu.`` import.
+  ``jax``, ``flax``, ``orbax`` and ``tensorstore`` nor the JAX package
+  (``cvcs_tpu`` or ``cvcs_tpu.*`` — the port's own name starts with the
+  same letters) may be loaded after: the Orbax reader imports
+  ``tensorstore`` only when it reads.
+* A source scan finds no jax / flax / orbax import and no ``cvcs_tpu.``
+  import.
 * Without ``device="cpu"``, the entry points raise on a machine with no
   card instead of running on the CPU.
 """
@@ -36,7 +39,8 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
         [f"import {m}" for m in MODULES]
         + ["import sys",
            "bad = sorted(m for m in sys.modules if m in ('jax', 'flax',"
-           " 'cvcs_tpu') or m.startswith(('jax.', 'flax.', 'cvcs_tpu.')))",
+           " 'orbax', 'tensorstore', 'cvcs_tpu') or m.startswith(('jax.',"
+           " 'flax.', 'orbax.', 'tensorstore.', 'cvcs_tpu.')))",
            "print(repr(bad))"])
     out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
                          capture_output=True, text=True, timeout=120)
@@ -56,7 +60,8 @@ def test_source_imports_nothing_of_jax(path):
             continue
         for name in names:
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "flax", "cvcs_tpu"), (
+            assert root not in ("jax", "jaxlib", "flax", "orbax",
+                                "cvcs_tpu"), (
                 f"{path}: imports {name}")
 
 

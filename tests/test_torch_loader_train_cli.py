@@ -11,8 +11,11 @@
   2 epochs of SwinUnetTiny with the recipe's keys and
   ``augmentation: fused`` write checkpoints; resuming from the epoch-2
   checkpoint continues the histories; a non-finite loss halts training;
-  keys of paths not yet ported raise; without a card and without
-  ``device: cpu`` it raises.
+  ``load_context`` and ``random_tps`` build (their data is held against
+  JAX in ``tests/test_torch_context.py``), ``mesh`` over two devices
+  raises, as does a checkpoint directory holding neither ``state.pt``
+  nor an Orbax ``state/``; without a card and without ``device: cpu``
+  it raises.
 """
 
 import json
@@ -206,18 +209,21 @@ def test_train_cli_halts_on_nan_and_refuses_what_it_cannot_run(
     trainer.loss_fn = lambda logits, labels: logits.float().mean() * np.nan
     with pytest.raises(FloatingPointError, match="non-finite"):
         trainer.train()
-    for key, value in (("load_context", True),
-                       ("random_tps", [[448, 0.1]]),
-                       ("mesh", {"data": 2})):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train_cli.build_trainer(_config(dataset, tmp_path,
-                                            **{key: value}))
+    built = train_cli.build_trainer(_config(
+        dataset, tmp_path, load_context=True, random_tps=[[300, 0.5]],
+        async_checkpoints=True))
+    assert built.train_loader.load_context and built.val_loader.load_context
+    assert built.config.random_tps == [[300, 0.5]]
+    assert built.config.async_checkpoints
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train_cli.build_trainer(_config(dataset, tmp_path,
+                                        mesh={"data": 2}))
     with pytest.raises(ValueError, match="remat: true is not supported"):
         train_cli.build_trainer(_config(dataset, tmp_path, remat=True))
-    orbax = tmp_path / "ck" / "checkpoint9" / "state"
-    orbax.mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="Orbax"):
-        ckpt_lib.load_checkpoint(orbax.parent, trainer.state)
+    torn = tmp_path / "ck" / "checkpoint9" / "state"
+    torn.mkdir(parents=True)                    # no _METADATA: not Orbax's
+    with pytest.raises(FileNotFoundError, match="Orbax"):
+        ckpt_lib.load_checkpoint(torn.parent, trainer.state)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = _config(dataset, tmp_path)
     del cfg["device"]

@@ -3,8 +3,9 @@ each fault found by reading the two side by side.
 
 1. ``restore_variables`` loads the port's own train checkpoints: a
    ``checkpointN/`` directory and its ``state.pt`` restore the saved
-   weights strictly; a directory of the JAX package's Orbax layout
-   (``state/``) is still refused.
+   weights strictly; so does the JAX package's Orbax ``checkpointN/``
+   (written here by the JAX package's ``save_checkpoint``): the weights
+   equal the JAX bridge's of the saved variables, bit for bit.
 2. ``Trainer.last_metrics`` keeps the periodic evaluation's metric dict
    (None before the first), as the JAX trainer does.
 3. ``cli.train`` prints its parameter and class-weight tables in the
@@ -80,10 +81,22 @@ def test_restore_variables_loads_port_checkpoints(tmp_path):
         got = fresh.state_dict()
         assert set(got) == set(want)
         assert all(torch.equal(got[k], want[k]) for k in want), ckpt
-    orbax = tmp_path / "checkpoint9"
-    (orbax / "state").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        common.restore_variables({"load_checkpoint": str(orbax)}, fresh)
+    from cvcs_tpu.models import build_model as jax_build_model
+    from cvcs_tpu.train import build_optimizer as jax_build_optimizer
+    from cvcs_tpu.train import checkpoint as jax_ckpt
+    from cvcs_tpu.train import create_train_state
+    from cvcs_tpu_torch.weights import jax_state_dict
+
+    jmodel, _ = jax_build_model("SwinUnetTiny", 16, dtype=jnp.float32)
+    jstate = create_train_state(jmodel, jax_build_optimizer("SGD2"),
+                                jnp.zeros((1, 32, 32, 3), jnp.uint8), seed=3)
+    orbax = jax_ckpt.save_checkpoint(tmp_path / "jax", 0, jstate, [1.0],
+                                     [1.0], 10, "SGD2")
+    common.restore_variables({"load_checkpoint": str(orbax)}, fresh)
+    want = jax_state_dict(fresh, jax.tree_util.tree_map(np.asarray, {
+        "params": jstate.params, "batch_stats": jstate.batch_stats}))
+    got = fresh.state_dict()
+    assert all(torch.equal(got[k], want[k]) for k in want)
 
 
 @pytest.fixture(scope="module")
