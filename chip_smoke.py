@@ -139,7 +139,25 @@ Phases (any failure raises and the script exits non-zero):
    ``cli.evaluate`` on the 80 validation patches from both, with equal
    confusion matrices; whether ``tensorstore`` imports here (where it
    does not, the Orbax reader's ImportError names
-   ``python -m cvcs_tpu.cli.export``).
+   ``python -m cvcs_tpu.cli.export``);
+9. the mesh on ``torch.distributed``, in processes of their own over a
+   ``file://`` rendezvous (``--phase9`` runs this phase alone after the
+   builds): two gloo ranks sharing ``cuda:0`` (NCCL refuses two ranks on
+   one GPU; gloo's sends take no CUDA tensor, so the halo stages through
+   pinned host buffers) run full-width SwinUnet's
+   ``predict_scene_sharded`` at spatial 2 on the 6800 x 7200 scene (f32
+   labels equal to the one-device window path's, bf16 on >= 99.9%, K1 on
+   both ranks), ``predict_scene_fullconv_sharded`` (equal to 15-row
+   bands on one device, f32), ``predict_scenes_sharded`` and the serve
+   daemon at data 2 (labels, masks and journal equal to one device's),
+   data-parallel f32 Unetv2, SwinUnet and fused-loss steps and an f64
+   Unetv2 step against one process on the global batch of 10 (loss and
+   running statistics within 1e-5, phase 6's update rule on the f64
+   step), ``cli.train`` with ``mesh: {data: 2}`` for an epoch and a
+   resume with ``load_checkpoint: auto`` (K1 and K2 12 a step, K5 once a
+   chunk, on each rank) and ``cli.evaluate`` with the mesh (its confusion
+   matrix equal to one device's); then one NCCL rank runs the scene path
+   on a 1 x 1 mesh.
 
 The last two lines are a JSON object of per-kernel numbers and the
 result line ``{"ok": true, "device": {...}}``; before them, the
@@ -3435,6 +3453,573 @@ def interop_path(result: dict) -> None:
     result["interop"] = out
 
 
+# -- phase 9: the mesh on torch.distributed ---------------------------------------
+# windows per forward on both sides of the sharded-scene comparisons: the
+# scene's 960 tiles are 6 batches of 160 and a rank's strip of 480 is 3, so
+# the one-device and the two-rank runs forward the same batches
+MESH_BT = 160
+MESH_STEPS = (("Unetv2", "eager"), ("Unetv2", "eager_f64"),
+              ("SwinUnet", "eager"), ("Unetv2", "fused"))
+# a data-parallel f32 step's gradient sums in another order than the
+# one-process step's, and at random weights the train-mode gradients are
+# ill-conditioned: on the CPU, Unetv2's DP gradient at the recipe's
+# geometry is 7.1e-2 of a parameter's largest from the one-process one in
+# f32 and 7.5e-7 with f64 compute. Phase 6's rule holds the f64 step;
+# the f32 steps are held to the bound a gross fault breaks (a half or a
+# per-rank gradient moves updates by 0.5 or more)
+TOL_UPDATE_F32_DP = 0.25
+
+
+def mesh_batch():
+    """The global batch of the data-parallel steps (phase 6's recipe
+    batch: 10 patches at p 224, 32 x 32 label blocks, a void run) and its
+    class weights, on the host."""
+    from cvcs_tpu_torch.data.reader import class_weights
+
+    g = torch.Generator().manual_seed(17)
+    image = torch.randint(0, 256, (B_TRAIN, 224, 224, 3), generator=g,
+                          dtype=torch.uint8)
+    blocks = torch.randint(0, NC, (B_TRAIN, 7, 7), generator=g)
+    blocks[0, 0, :3] = 255                       # void
+    mask = blocks.repeat_interleave(32, 1).repeat_interleave(32, 2)
+    counts = np.bincount(mask[mask < NC].numpy(), minlength=NC)
+    return image, mask.to(torch.int32), class_weights(counts, True)
+
+
+def mesh_step(name: str, kind: str, mesh=None):
+    """One f32 SGD2 step of full-width ``name`` from seed-0 weights on
+    :func:`mesh_batch` (wCEL with ignore_background, eager or through
+    ``build_fused_ce``; ``eager_f64`` computes in f64); with ``mesh``, this rank's share of it,
+    data-parallel. Returns (loss, state dict on the card, the step's
+    gradient of each parameter: the sum over the ranks under a mesh)."""
+    from cvcs_tpu_torch.core import mesh as mesh_lib
+    from cvcs_tpu_torch.models import build_model
+    from cvcs_tpu_torch.ops import fused_ce, losses
+    from cvcs_tpu_torch.train.optim import build_optimizer
+    from cvcs_tpu_torch.train.state import TrainState
+    from cvcs_tpu_torch.train.step import train_step
+
+    image, mask, weights = mesh_batch()
+    model, _ = build_model(name, NC, seed=0, dtype=torch.float64
+                           if kind.endswith("f64") else torch.float32)
+    opt = build_optimizer("SGD2", model.parameters())
+    opt.set_epoch(0)
+    fn = (fused_ce.build_fused_ce(weights, ignore_background=True)
+          if kind == "fused" else losses.build_loss(
+              "wCEL", weights=weights, ignore_background=True,
+              device="cuda"))
+    x, m = image.cuda(), mask.cuda()
+    if mesh is not None:
+        x, m = mesh_lib.shard_batch((x, m), mesh)
+    loss = float(train_step(TrainState(model, opt), fn, x, m, mesh=mesh))
+    return loss, model.state_dict(), {n: p.grad for n, p in
+                                      model.named_parameters()}
+
+
+def grad_update_err(got: dict, want: dict, start: dict) -> tuple:
+    """Phase 6's rule (:func:`update_err`) on the first SGD2 update
+    lr * (g + 1e-5 p) rebuilt in f64 from each step's gradients (lr
+    cancels): the parameters' own f32 storage would round an update of
+    1e-6 on a weight near 1 to a few ulps, 6e-8 each."""
+    upd = {k: want[k].double() + 1e-5 * start[k].double() for k in want}
+    top = max(float(u.abs().max()) for u in upd.values())
+    return max(float((got[k].double() + 1e-5 * start[k].double() - u)
+                     .abs().max()) / max(float(u.abs().max()), 1e-3 * top)
+               for k, u in upd.items()), top
+
+
+def mesh_serve_cfg(tmp: Path, out: str, **kw) -> dict:
+    return dict(watch_dir=str(tmp / "watch"), output=str(tmp / out),
+                net="SwinUnet", patch_size=224, border_correction=256,
+                batch_tiles=80, num_classes=15, precision="bf16",
+                max_polls=1, poll_s=0, **kw)
+
+
+def mesh_train_cfg(tmp: Path, epochs: int, **kw) -> dict:
+    return dict(train_config(dict(train=str(tmp / "train"),
+                                  validation=str(tmp / "val")),
+                             "SwinUnet", epochs, tmp / "ckpt",
+                             tmp / "metrics.jsonl"), **kw)
+
+
+def mesh_eval_cfg(tmp: Path, batch_size: int, **kw) -> dict:
+    return dict(dataset=str(tmp / "val"), net="SwinUnet", patch_size=224,
+                load_checkpoint=str(tmp / "ckpt" / "checkpoint2"),
+                num_classes=15, precision="f32", ignore_background=True,
+                batch_size=batch_size, **kw)
+
+
+def mesh_rank(rank: int, world: int, tmp: str, backend: str) -> int:
+    """``chip_smoke.py --mesh-rank <rank> <world> <dir> <backend>``, one
+    rank of phase 9 on ``cuda:0`` (``LOCAL_RANK`` 0), joined over a
+    ``file://`` rendezvous in ``dir``; writes its JSON there (rank 0 also
+    the label maps and states the main process compares)."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = Path(tmp)
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rdv_{backend}",
+                            rank=rank, world_size=world)
+    try:
+        out = (mesh_rank_nccl(tmp) if backend == "nccl"
+               else mesh_rank_gloo(rank, tmp))
+        out.update(rank=rank, backend=dist.get_backend())
+        (tmp / f"rank{rank}_{backend}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_rank_nccl(tmp: Path) -> dict:
+    """One rank under NCCL: the spatial scene path on a 1 x 1 mesh (its
+    all-gather an NCCL collective) on one 1792 x 2240 raster, bf16."""
+    from cvcs_tpu_torch.core.mesh import MeshConfig, create_mesh
+    from cvcs_tpu_torch.infer import InferenceConfig, SceneSegmenter
+    from cvcs_tpu_torch.models import build_model
+
+    mesh = create_mesh(MeshConfig(data=1, spatial=1))
+    model, _ = build_model("SwinUnet", 16, seed=0, dtype=torch.bfloat16)
+    seg = SceneSegmenter(model, InferenceConfig(
+        patch_size=224, border_correction=256, batch_tiles=128,
+        num_classes=16))
+    reset_counts()
+    lab = seg.predict_scene_sharded(synthetic_scene(1792, 2240, seed=10),
+                                    mesh)
+    torch.cuda.synchronize()
+    np.save(tmp / "nccl_labels.npy", lab.cpu().numpy())
+    return dict(launches=kernel_counts(), device=str(mesh.device))
+
+
+def mesh_rank_gloo(rank: int, tmp: Path) -> dict:
+    """Rank ``rank`` of two gloo ranks sharing the card: the spatial scene
+    path (f32 and bf16) and the fullconv strips at spatial 2, one halo
+    exchange timed, the scene-parallel pass and the serve daemon at data
+    2, the data-parallel steps, ``cli.train`` for an epoch and a resume,
+    and ``cli.evaluate``, each with its launch counts."""
+    from cvcs_tpu_torch.cli import serve as serve_cli
+    from cvcs_tpu_torch.cli import train as train_cli
+    from cvcs_tpu_torch.core import mesh as mesh_lib
+    from cvcs_tpu_torch.infer import InferenceConfig, SceneSegmenter
+    from cvcs_tpu_torch.models import build_model
+    from cvcs_tpu_torch.parallel.halo import exchange_row_halo
+
+    import yaml
+
+    sp = mesh_lib.create_mesh(mesh_lib.MeshConfig(data=1, spatial=2))
+    dp = mesh_lib.create_mesh(mesh_lib.MeshConfig(data=2, spatial=1))
+    out = dict(device=str(sp.device))
+    scene = synthetic_scene(6800, 7200, seed=1)
+    cfg = InferenceConfig(patch_size=224, border_correction=256,
+                          batch_tiles=MESH_BT, num_classes=16)
+
+    def timed(key, fn, tiles=None):
+        mesh_lib.barrier(sp)
+        reset_counts()
+        t0 = time.perf_counter()
+        lab = fn()
+        torch.cuda.synchronize()
+        mesh_lib.barrier(sp)
+        secs = time.perf_counter() - t0
+        out[key] = dict(seconds=secs, launches=kernel_counts())
+        if tiles:
+            out[key]["tiles_per_s"] = tiles / secs
+        if rank == 0 and lab is not None:
+            np.save(tmp / f"{key}.npy", lab.cpu().numpy())
+
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        model, _ = build_model("SwinUnet", 16, seed=0, dtype=dtype)
+        seg = SceneSegmenter(model, cfg)
+        seg.predict_scene_sharded(scene[:1792, :2240], sp)       # warm-up
+        timed(f"scene_{tag}", lambda: seg.predict_scene_sharded(scene, sp),
+              960)
+        if tag == "f32":
+            timed("fullconv_f32", lambda: seg.predict_scene_fullconv_sharded(
+                scene[:6720, :7168], sp), 960)
+        del model, seg
+        torch.cuda.empty_cache()
+
+    # one halo exchange of the window path's strip (bc - p = 32 rows)
+    strip = torch.zeros((15 * 224, 7168 + 64, 3), dtype=torch.uint8,
+                        device="cuda")
+    ms = []
+    for _ in range(6):
+        mesh_lib.barrier(sp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exchange_row_halo(strip, 32, sp)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["halo"] = dict(bytes_each_way=32 * (7168 + 64) * 3, ms=ms[1:])
+    del strip
+
+    model, _ = build_model("SwinUnet", 16, seed=0, dtype=torch.bfloat16)
+    seg = SceneSegmenter(model, InferenceConfig(
+        patch_size=224, border_correction=256, batch_tiles=128,
+        num_classes=16))
+    rasters = [synthetic_scene(1792, 2240, seed=10 + i) for i in range(2)]
+    timed("scenes", lambda: seg.predict_scenes_sharded(rasters, dp), 160)
+    del model, seg
+    def serve():
+        out["served"] = serve_cli.serve(mesh_serve_cfg(
+            tmp, "served_mesh", mesh={"data": 2}))
+
+    timed("serve", serve)
+    torch.cuda.empty_cache()
+
+    for name, kind in MESH_STEPS:
+        reset_counts()
+        loss, sd, grads = mesh_step(name, kind, dp)
+        torch.cuda.synchronize()
+        out[f"step_{name}_{kind}"] = dict(loss=loss, launches=kernel_counts(),
+                                          digest=float(sum(
+                                              v.double().abs().sum()
+                                              for v in sd.values()
+                                              if v.is_floating_point())))
+        if rank == 0:
+            torch.save(dict(state={k: v.cpu() for k, v in sd.items()},
+                            grads={k: v.cpu() for k, v in grads.items()}),
+                       tmp / f"step_{name}_{kind}.pt")
+        del sd, grads
+        torch.cuda.empty_cache()
+
+    for key, epochs, extra in (("train", 1, {}),
+                               ("resume", 2, {"load_checkpoint": "auto"})):
+        path = tmp / f"train_{key}_{rank}.yaml"
+        path.write_text(yaml.safe_dump(mesh_train_cfg(
+            tmp, epochs, mesh={"data": 2}, **extra)))
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = train_cli.main(["train", str(path)])
+        torch.cuda.synchronize()
+        out[key] = dict(rc=rc, seconds=time.perf_counter() - t0,
+                        launches=kernel_counts())
+    torch.cuda.empty_cache()
+
+    torch.backends.cudnn.deterministic = True
+    reset_counts()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, conf, secs = evaluate_confusion(mesh_eval_cfg(
+                tmp, 8, mesh={"data": 2}))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out["evaluate"] = dict(seconds=secs, launches=kernel_counts(),
+                           confusion=conf.tolist())
+    return out
+
+
+def phase9_alone() -> int:
+    """``chip_smoke.py --phase9``: build the kernels and run phase 9 alone
+    (its comparison with phase 5's epoch rate then reads 0)."""
+    from cvcs_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(gpu_line())
+    _build.build(["swin_attn", "swin_attn_bwd", "augment", "fused_ce"])
+    result: dict = {}
+    mesh_path(result)
+    log(json.dumps(result["mesh"]))
+    return 0
+
+
+def run_ranks(world: int, tmp: Path, backend: str, timeout: float) -> list:
+    """The ``world`` rank processes of one phase-9 run, all on ``cuda:0``;
+    their JSON, in rank order. Kills them all if one fails or the time
+    runs out."""
+    import os
+
+    env = dict(os.environ, LOCAL_RANK="0")
+    logs = [tmp / f"rank{r}_{backend}.log" for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+         str(r), str(world), str(tmp), backend], env=env,
+        stdout=open(logs[r], "w"), stderr=subprocess.STDOUT)
+        for r in range(world)]
+    deadline = time.time() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rcs = [p.returncode for p in procs]
+    if any(rcs):
+        for r, path in enumerate(logs):
+            log(f"  rank {r} ({backend}) exited {rcs[r]}; its log ends:\n"
+                + path.read_text()[-3000:])
+        raise RuntimeError(f"phase 9 {backend} ranks exited {rcs}")
+    return [json.loads((tmp / f"rank{r}_{backend}.json").read_text())
+            for r in range(world)]
+
+
+def mesh_path(result: dict) -> None:
+    """Phase 9: the port's mesh on ``torch.distributed``. Two gloo ranks
+    share the one card (NCCL refuses two ranks on one GPU; gloo takes CUDA
+    tensors in its collectives, and the halo exchange stages its rows
+    through pinned host buffers, since gloo's sends take none), and one
+    NCCL rank runs the scene path on a 1 x 1 mesh. The references are
+    computed here, on one device, before the ranks start."""
+    from PIL import Image
+
+    from cvcs_tpu_torch.cli import serve as serve_cli
+    from cvcs_tpu_torch.infer import InferenceConfig, SceneSegmenter
+    from cvcs_tpu_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        synthetic_dataset(tmp / "train", 2, seed=20)
+        synthetic_dataset(tmp / "val", 1, seed=30)
+        (tmp / "watch").mkdir()
+        for i in range(3):
+            Image.fromarray(synthetic_scene(1792, 2240, seed=10 + i)).save(
+                tmp / "watch" / f"r{i}.png")
+
+        # references on one device
+        scene = synthetic_scene(6800, 7200, seed=1)
+        ref = {}
+        cfg = InferenceConfig(patch_size=224, border_correction=256,
+                              batch_tiles=MESH_BT, num_classes=16)
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            model, _ = build_model("SwinUnet", 16, seed=0, dtype=dtype)
+            seg = SceneSegmenter(model, cfg)
+            ref[f"scene_{tag}"] = seg.predict_scene(scene).cpu().numpy()
+            if tag == "f32":
+                padded, rows, cols, halo = seg.pad_scene_fullconv(
+                    scene[:6720, :7168])
+                ref["fullconv_f32"] = seg.predict_padded_fullconv(
+                    padded, rows, cols, halo, band_rows=15).cpu().numpy()
+                del padded
+            else:
+                t0 = time.perf_counter()
+                seg.predict_scene(scene)
+                torch.cuda.synchronize()
+                ref["scene_tiles_per_s"] = 960 / (time.perf_counter() - t0)
+                seg.cfg = InferenceConfig(patch_size=224,
+                                          border_correction=256,
+                                          batch_tiles=128, num_classes=16)
+                ref["scenes"] = np.stack([
+                    seg.predict_scene(synthetic_scene(1792, 2240, 10 + i))
+                    .cpu().numpy() for i in range(2)])
+            del model, seg
+            torch.cuda.empty_cache()
+        del scene
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert serve_cli.serve(mesh_serve_cfg(tmp, "served")) == 3
+        steps = {}
+        for name, kind in MESH_STEPS:
+            loss, sd, grads = mesh_step(name, kind)
+            steps[(name, kind)] = (loss, {k: v.cpu() for k, v in sd.items()},
+                                   {k: v.cpu() for k, v in grads.items()})
+        starts = {name: build_model(name, NC, seed=0, dtype=torch.float32)[0]
+                  for name in ("Unetv2", "SwinUnet")}
+        names = {k: [n for n, _ in m.named_parameters()]
+                 for k, m in starts.items()}
+        starts = {k: {n: v.cpu() for n, v in m.state_dict().items()}
+                  for k, m in starts.items()}
+        torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t_phase
+        log(f"  references on one device in {t_ref:.1f} s; two gloo ranks on "
+            "cuda:0 next")
+
+        t0 = time.perf_counter()
+        ranks = run_ranks(2, tmp, "gloo", 600)
+        t_gloo = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (nccl,) = run_ranks(1, tmp, "nccl", 300)
+        t_nccl = time.perf_counter() - t0
+
+        # -- the spatial scene path, the fullconv strips ---------------------
+        r0, r1 = ranks
+        for key in ("scene_f32", "scene_bf16", "fullconv_f32"):
+            assert r0[key]["launches"] == r1[key]["launches"], key
+        k1 = r0["scene_f32"]["launches"]["K1"]
+        assert k1 == r0["scene_bf16"]["launches"]["K1"] == 12 * 3, k1
+        f32 = np.load(tmp / "scene_f32.npy")
+        bf16 = np.load(tmp / "scene_bf16.npy")
+        f32_equal = bool(np.array_equal(f32, ref["scene_f32"]))
+        bf16_share = float((bf16 == ref["scene_bf16"]).mean())
+        halo = r0["halo"]
+        log(f"  predict_scene_sharded, spatial 2 (15 tile rows a rank, the "
+            f"80-row bottom overhang in rank 1's lower halo), full-width "
+            f"SwinUnet, {MESH_BT} windows a forward: f32 labels equal to "
+            f"the one-device window path's: {f32_equal}; bf16 labels agree "
+            f"on {bf16_share * 100:.4f}% (>= 99.9%); K1 launches per rank "
+            f"{k1} (12 x 3 forwards) on both; bf16 "
+            f"{r0['scene_bf16']['tiles_per_s']:.1f} tiles/s over the two "
+            f"ranks sharing the card against the one-device window path's "
+            f"{ref['scene_tiles_per_s']:.1f} in this phase; halo "
+            f"{halo['bytes_each_way']} B each way a rank, "
+            f"{min(halo['ms']):.3f}-{max(halo['ms']):.3f} ms an exchange "
+            f"(staged through pinned host buffers, gloo)")
+        assert f32.shape == (6720, 7168) and f32_equal
+        assert bf16_share >= 0.999
+        fc = np.load(tmp / "fullconv_f32.npy")
+        fc_equal = bool(np.array_equal(fc, ref["fullconv_f32"]))
+        fc_k1 = r0["fullconv_f32"]["launches"]["K1"]
+        log(f"  predict_scene_fullconv_sharded, spatial 2, f32, scene cropped"
+            f" to its 30 x 32 tiles: equal to predict_padded_fullconv with "
+            f"band_rows 15 on one device: {fc_equal}; K1 per rank {fc_k1} "
+            "(12: one strip forward)")
+        assert fc_equal and fc_k1 == 12
+
+        # -- scene-parallel, the serve daemon -------------------------------
+        scenes = np.load(tmp / "scenes.npy")
+        sc_equal = bool(np.array_equal(scenes, ref["scenes"]))
+        sc_k1 = (r0["scenes"]["launches"]["K1"],
+                 r1["scenes"]["launches"]["K1"])
+        served = {}
+        for which in ("served", "served_mesh"):
+            entries = [json.loads(x) for x in (tmp / which / "manifest.jsonl")
+                       .read_text().splitlines()]
+            served[which] = dict(
+                journal=[{k: e[k] for k in ("name", "mask", "shape", "batch")}
+                         for e in entries],
+                masks=[np.asarray(Image.open(tmp / which / e["mask"]))
+                       for e in entries])
+        masks_equal = all(np.array_equal(a, b) for a, b in zip(
+            served["served"]["masks"], served["served_mesh"]["masks"]))
+        journal_equal = (served["served"]["journal"]
+                         == served["served_mesh"]["journal"])
+        serve_k1 = (r0["serve"]["launches"]["K1"],
+                    r1["serve"]["launches"]["K1"])
+        log(f"  predict_scenes_sharded, data 2, two 1792x2240 rasters bf16: "
+            f"labels equal to predict_scene's: {sc_equal}; K1 per rank "
+            f"{sc_k1}; serve with mesh {{data: 2}} on three rasters (a "
+            f"scene-parallel pair and one alone): masks equal: "
+            f"{masks_equal}, journal equal: {journal_equal}, K1 per rank "
+            f"{serve_k1}")
+        assert sc_equal and sc_k1 == (12, 12)
+        assert masks_equal and journal_equal and len(
+            served["served_mesh"]["masks"]) == 3
+        assert serve_k1 == (24, 24) and r0["served"] == r1["served"] == 3
+
+        # -- data-parallel steps ---------------------------------------------
+        step_out = {}
+        for name, kind in MESH_STEPS:
+            key = f"step_{name}_{kind}"
+            want_loss, want, want_grads = steps[(name, kind)]
+            saved = torch.load(tmp / f"{key}.pt", weights_only=True)
+            got = saved["state"]
+            assert r0[key]["digest"] == r1[key]["digest"], key
+            assert r0[key]["loss"] == r1[key]["loss"], key
+            rel = abs(r0[key]["loss"] - want_loss) / abs(want_loss)
+            stored, _ = update_err(got, want, starts[name], names[name])
+            upd, top = grad_update_err(saved["grads"], want_grads,
+                                       starts[name])
+            stats = max(float((got[k] - v).abs().max()) / max(1.0, float(
+                v.abs().max())) for k, v in want.items()
+                if "running" in k)
+            launches = (r0[key]["launches"], r1[key]["launches"])
+            log(f"  {name} step ({kind} wCEL) at data 2 vs one process "
+                f"on the global batch of {B_TRAIN}: loss "
+                f"{r0[key]['loss']:.6f} vs {want_loss:.6f} (relative "
+                f"{rel:.2e}, tol 1e-5); update error {upd:.2e} (tol "
+                f"{TOL_UPDATE if kind.endswith('f64') else TOL_UPDATE_F32_DP:g}"
+                f", largest update / lr {top:.2e}; "
+                f"{stored:.2e} as stored in the f32 parameters); running "
+                f"statistics err/scale {stats:.2e} (tol 1e-5); launches per "
+                f"rank {launches[0]}")
+            assert rel <= 1e-5 and stats <= 1e-5
+            assert upd <= (TOL_UPDATE if kind.endswith("f64")
+                           else TOL_UPDATE_F32_DP)
+            assert launches[0] == launches[1]
+            if name == "SwinUnet":
+                assert (launches[0]["K1"], launches[0]["K2"]) == (12, 12)
+            if kind == "fused":
+                assert (launches[0]["K3"], launches[0]["K4"]) == (1, 1)
+            step_out[key] = dict(loss_rel=rel, update_err=upd,
+                                 stored_update_err=stored, stats_err=stats,
+                                 launches=launches[0])
+
+        # -- cli.train, its resume, cli.evaluate ----------------------------
+        per_epoch = dict(K1=12 * (STEPS_PER_EPOCH + VAL_BATCHES
+                                  + EVAL_BATCHES),
+                         K2=12 * STEPS_PER_EPOCH, K3=0, K4=0, K5=1)
+        metrics = [json.loads(x) for x in (tmp / "metrics.jsonl")
+                   .read_text().splitlines()]
+        for key in ("train", "resume"):
+            assert r0[key]["rc"] == r1[key]["rc"] == 0, key
+            assert r0[key]["launches"] == r1[key]["launches"] == per_epoch, (
+                key, r0[key]["launches"], r1[key]["launches"])
+        meta = json.loads((tmp / "ckpt" / "checkpoint2" / "meta.json")
+                          .read_text())
+        losses = meta["training_loss_values"]
+        assert len(losses) == 2 * STEPS_PER_EPOCH
+        assert np.isfinite(losses).all()
+        assert [m["epoch"] for m in metrics] == [1, 2]
+        smi = gpu_line()
+        rate = metrics[0]["patches_per_s"]
+        plain = result.get("train", {}).get("patches_per_s_epoch2", 0.0)
+        log(f"  cli.train SwinUnet bf16, mesh {{data: 2}} (5 patches a rank a"
+            f" step), 1 epoch then a resume with load_checkpoint: auto: "
+            f"launches per rank per epoch {r0['train']['launches']} (K1, K2 "
+            f"12 a step, K5 once a chunk); epoch 1 {rate:.1f} patches/s, "
+            f"epoch 2 {metrics[1]['patches_per_s']:.1f}, against phase 5's "
+            f"one process {plain:.1f} ({smi}; two ranks on one card measure "
+            f"overhead, not scaling); losses {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}")
+        torch.backends.cudnn.deterministic = True
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                _, conf, _ = evaluate_confusion(mesh_eval_cfg(tmp, 4))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        conf_equal = bool(np.array_equal(np.asarray(r0["evaluate"]
+                                                    ["confusion"]), conf))
+        log(f"  cli.evaluate of checkpoint2 with mesh {{data: 2}} (8 patches "
+            f"a batch, 4 a rank) vs one device (4 a batch: the same "
+            f"forwards), f32, cuDNN deterministic: confusion matrices "
+            f"equal: {conf_equal} ({int(conf.sum())} pixels)")
+        assert conf_equal and int(conf.sum()) > 0
+
+        # -- one NCCL rank --------------------------------------------------
+        lab = np.load(tmp / "nccl_labels.npy")
+        nccl_equal = bool(np.array_equal(lab, ref["scenes"][0]))
+        log(f"  one NCCL rank ({nccl['backend']}, {nccl['device']}): "
+            f"predict_scene_sharded on a 1 x 1 mesh, 1792x2240 bf16, equal to"
+            f" predict_scene's: {nccl_equal}; K1 {nccl['launches']['K1']}")
+        assert nccl["backend"] == "nccl" and nccl_equal
+        assert nccl["launches"]["K1"] == 12
+        seconds = time.perf_counter() - t_phase
+        log(f"  phase 9: {seconds:.1f} s (references {t_ref:.1f}, gloo ranks "
+            f"{t_gloo:.1f}, NCCL rank {t_nccl:.1f})")
+        out = dict(
+            backend=r0["backend"], seconds=seconds, references_s=t_ref,
+            gloo_ranks_s=t_gloo, nccl_rank_s=t_nccl,
+            scene=dict(f32_equal=f32_equal, bf16_share=bf16_share,
+                       bf16_tiles_per_s=r0["scene_bf16"]["tiles_per_s"],
+                       one_device_tiles_per_s=ref["scene_tiles_per_s"],
+                       launches=r0["scene_bf16"]["launches"]),
+            halo=halo, fullconv=dict(equal=fc_equal,
+                                     launches=r0["fullconv_f32"]["launches"]),
+            scenes=dict(equal=sc_equal, launches=r0["scenes"]["launches"]),
+            serve=dict(masks_equal=masks_equal, journal_equal=journal_equal,
+                       launches=r0["serve"]["launches"]),
+            steps=step_out,
+            train=dict(launches_per_epoch=r0["train"]["launches"],
+                       patches_per_s=[m["patches_per_s"] for m in metrics],
+                       seconds=[r0["train"]["seconds"],
+                                r0["resume"]["seconds"]],
+                       one_process_patches_per_s=plain, card=smi),
+            evaluate=dict(equal=conf_equal,
+                          launches=r0["evaluate"]["launches"]),
+            nccl=dict(equal=nccl_equal, launches=nccl["launches"]))
+    result["mesh"] = out
+
+
 def trace_train(out_path: str) -> int:
     """``chip_smoke.py --trace-train <json>``, run by
     :func:`trace_train_in_child` in a process of its own (a fresh
@@ -3637,21 +4222,37 @@ def main() -> int:
     interop_path(result)
     il = result["interop"]["train"]["launches"]
 
+    log(f"[9] the mesh on torch.distributed: two gloo ranks sharing the card,"
+        f" one NCCL rank ({since(t_start)})")
+    mesh_path(result)
+    mk = result["mesh"]
+
     tl = result["train"]["launches"]
     ul = result["unet_train"]["launches"]
     sl = result["segformer_train"]["launches"]
     rl = result["deeplab_train"]["resnet101"]["launches"]
     ml = result["deeplab_train"]["mobilenet"]["launches"]
     k5_paths = dict(swin_train=tl["K5"], swin_context_tps_train=il["K5"],
+                    mesh_train_per_rank=mk["train"]["launches_per_epoch"]["K5"]
+                    * 2,
                     segformer_train=sl["K5"],
                     segformer_fused_epoch=sl["K5_fused_epoch"],
                     resnet101_train=rl["K5"],
                     resnet101_fused_epoch=rl["K5_fused_epoch"],
                     mobilenet_train=ml["K5"])
     ce_paths = {k: dict(unet_fused_epoch=ul[k], segformer_fused_epoch=sl[k],
-                        resnet101_fused_epoch=rl[k])
+                        resnet101_fused_epoch=rl[k],
+                        mesh_fused_step_per_rank=mk["steps"][
+                            "step_Unetv2_fused"]["launches"][k])
                 for k in ("K3", "K4")}
     sb = result["swin_bands"]
+    mesh_k1 = dict(mesh_scene_per_rank=mk["scene"]["launches"]["K1"],
+                   mesh_fullconv_per_rank=mk["fullconv"]["launches"]["K1"],
+                   mesh_scenes_per_rank=mk["scenes"]["launches"]["K1"],
+                   mesh_serve_per_rank=mk["serve"]["launches"]["K1"],
+                   mesh_train_epoch_per_rank=mk["train"][
+                       "launches_per_epoch"]["K1"],
+                   mesh_nccl_scene=mk["nccl"]["launches"]["K1"])
     k1_paths = dict(window_scene=result["launches"],
                     serve=result["serve_launches"],
                     streamed=sb["streamed"]["launches"],
@@ -3659,7 +4260,7 @@ def main() -> int:
                     fullconv_padded=sb["fullconv_padded"]["launches"],
                     fullconv_chunks=sb["fullconv_chunks"]["launches"],
                     esa=sb["esa"]["launches"], swin_train=tl["K1"],
-                    swin_context_tps_train=il["K1"])
+                    swin_context_tps_train=il["K1"], **mesh_k1)
 
     # what the per-geometry mask cache (models/swin.py attn_bias) holds on
     # the card at the end of the run: the memory its entries free
@@ -3695,8 +4296,12 @@ def main() -> int:
                      "F.linear + F.scaled_dot_product_attention + F.linear",
                      f"one SwinUnet train step at p 224, batch {B_TRAIN} "
                      "(12 launches)", max_scaled_err=k2_scaled,
-                     launches_by_path=dict(swin_train=tl["K2"],
-                                           swin_context_tps_train=il["K2"])),
+                     launches_by_path=dict(
+                         swin_train=tl["K2"], swin_context_tps_train=il["K2"],
+                         mesh_train_epoch_per_rank=mk["train"][
+                             "launches_per_epoch"]["K2"],
+                         mesh_swin_step_per_rank=mk["steps"][
+                             "step_SwinUnet_eager"]["launches"]["K2"])),
         kernel_entry(augment.KERNEL, sum(k5_paths.values()), k5_err, k5_times,
                      "composite: torch.flip / torch.rot90 per draw group, "
                      "then the contrast and normalisation ops",
@@ -3750,6 +4355,7 @@ def main() -> int:
         "retrieval": result["retrieval"],
         "trace_train": result["trace_train"],
         "interop": result["interop"],
+        "mesh": result["mesh"],
         "seconds": time.perf_counter() - t_start}
     log(f"chip_smoke: {line['seconds']:.1f} s from start to the result")
     log(smi)
@@ -3765,4 +4371,9 @@ if __name__ == "__main__":
         sys.exit(phase7(sys.argv[2]))
     if sys.argv[1:2] == ["--trace-train"]:
         sys.exit(trace_train(sys.argv[2]))
+    if sys.argv[1:2] == ["--phase9"]:
+        sys.exit(phase9_alone())
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                           sys.argv[5]))
     sys.exit(main())

@@ -11,6 +11,8 @@ Ported so far: the whole model zoo and every single-device entry point
 ``cli.esa``, ``cli.retrieve``, ``cli.export``), with the Swin fused
 window-attention forward and backward (``ops.swin_attn``), the fused
 augmentation (``ops.augment``) and the fused weighted cross-entropy
-(``ops.fused_ce``) as hand-written CUDA kernels. ROADMAP.md lists what
-is still to port.
+(``ops.fused_ce``) as hand-written CUDA kernels, and the (data,
+spatial) mesh of ranks on ``torch.distributed`` (``core.mesh``,
+``parallel.halo``) for the sharded scene paths and data-parallel
+training. ROADMAP.md lists what is still to port.
 """

@@ -1,6 +1,13 @@
-"""Shared CLI plumbing (port of ``cvcs_tpu/cli/common.py``): device
-selection, model construction from a config dict, checkpoint restore,
-ensemble assembly, label fetch and same-shape raster batching."""
+"""Shared CLI plumbing (port of ``cvcs_tpu/cli/common.py``): device and
+mesh selection, model construction from a config dict, checkpoint
+restore, ensemble assembly, label fetch and same-shape raster batching.
+
+A config's ``mesh: {data: D, spatial: S}`` lays the ranks of a
+``torchrun`` (or ``torch.multiprocessing``) launch out as
+:mod:`cvcs_tpu_torch.core.mesh` describes: ``python -m torch.distributed.run
+--nproc-per-node N -m cvcs_tpu_torch.cli.predict cfg.yaml`` runs one rank
+per card. Every rank runs the same sequence of collectives; rank 0 alone
+writes the outputs."""
 
 from __future__ import annotations
 
@@ -9,6 +16,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from cvcs_tpu_torch.core import mesh as mesh_lib
 from cvcs_tpu_torch.core.device import resolve_device
 from cvcs_tpu_torch.core.precision import policy_from_config
 from cvcs_tpu_torch.infer.engine import labels_to_host
@@ -19,23 +27,34 @@ from cvcs_tpu_torch.train.checkpoint import STATE, STATE_KEYS
 from cvcs_tpu_torch.utils import torch_import
 from cvcs_tpu_torch.weights import load_jax_variables, unflatten_npz
 
-# config keys of paths the port does not run yet -> the ROADMAP item; a
-# config naming one raises (fullconv with a mesh raises with the mesh)
-UNPORTED_KEYS = {
-    "mesh": "multi-device not yet ported (ROADMAP.md Queue 1 item 14)",
-}
-
-
-def reject_unported(config: dict) -> None:
-    for key, why in UNPORTED_KEYS.items():
-        if config.get(key):
-            raise NotImplementedError(f"config key {key!r}: {why}")
-
-
 def device_context(config: dict) -> torch.device:
     """The device a config selects: ``device: cpu`` the CPU, any other
     value or none the card (raises when there is none)."""
     return resolve_device("cpu" if config.get("device") == "cpu" else None)
+
+
+def mesh_from_config(config: dict, device: torch.device):
+    """The mesh a config's ``mesh`` asks for (JAX ``cli/common.py:28-33``),
+    over the ranks of the default group, which is initialised from
+    ``torchrun``'s environment when none exists; ``data: null`` means
+    every rank the spatial axis leaves. A 1x1 mesh is no mesh (None). In
+    a single process a mesh over more ranks raises ``MeshConfig.resolve``'s
+    ``ValueError``, as JAX raises over too few devices. The caller then
+    runs on ``mesh.device``."""
+    m = config.get("mesh") or {}
+    if not m:
+        return None
+    cfg = mesh_lib.MeshConfig(data=m.get("data"),
+                              spatial=int(m.get("spatial", 1)))
+    data, spatial = cfg.resolve(mesh_lib.world()[1])
+    if data * spatial == 1:
+        return None
+    return mesh_lib.create_mesh(cfg, device)
+
+
+def is_lead(mesh) -> bool:
+    """Whether this rank writes the outputs (rank 0, or no mesh)."""
+    return mesh is None or mesh.rank == 0
 
 
 def model_dtypes(config: dict) -> dict:
@@ -133,7 +152,6 @@ def build_apply(config: dict, device=None):
     gives the :func:`build_ensemble` vote, with a spec whose
     ``stride_product`` is the largest of its members' (all powers of
     two, so also their least common multiple)."""
-    reject_unported(config)
     if config.get("net") == "Ensemble":
         ens = build_ensemble(config, device)
         stride = max(MODEL_REGISTRY[m.name].stride_product
@@ -162,9 +180,23 @@ def fetch_labels(labels) -> list:
     return [labels_to_host(lab) for lab in labels]
 
 
-def segment_rasters(seg, rasters) -> list:
+def segment_rasters(seg, rasters, mesh=None) -> list:
     """Per-raster label maps; same-shape rasters run as one batched
-    multi-scene pass."""
+    multi-scene pass. With a mesh (JAX ``cli/common.py:187-208``), full
+    groups of ``data`` rasters run scene-parallel
+    (``predict_scenes_sharded``: scenes over the data axis, rows over the
+    spatial axis) and the rest one by one with their rows over the
+    spatial axis (``predict_scene_sharded``)."""
+    def one(r):
+        return (seg.predict_scene_sharded(r, mesh) if mesh is not None
+                else seg.predict_scene(r))
+
     if len(rasters) > 1 and len({r.shape for r in rasters}) == 1:
+        if mesh is not None:
+            n_data = mesh.shape[mesh_lib.DATA_AXIS]
+            full = len(rasters) - len(rasters) % n_data
+            per_scene = (list(seg.predict_scenes_sharded(
+                rasters[:full], mesh)) if full else [])
+            return per_scene + [one(r) for r in rasters[full:]]
         return list(seg.predict_scenes(rasters))
-    return [seg.predict_scene(r) for r in rasters]
+    return [one(r) for r in rasters]

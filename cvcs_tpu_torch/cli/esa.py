@@ -9,8 +9,9 @@ Config keys (``config.loader.ESA_KEYS``): ``image`` (one path or a list),
 (default 512), ``border_correction``, ``batch_tiles``, ``tta``,
 ``out_image`` (default ``output_esa.png``; with several images
 ``<stem>_<i><suffix>``), ``output`` (a directory for per-patch PNGs),
-``num_classes``, ``precision``, ``in_channels`` and ``device``. ``mesh``
-is not ported yet and raises.
+``num_classes``, ``precision``, ``in_channels``, ``device`` and ``mesh``
+(rows over the ``spatial`` axis, same-shape images over ``data``:
+``common.segment_rasters``; rank 0 writes the maps).
 """
 
 from __future__ import annotations
@@ -29,8 +30,10 @@ def run(config: dict) -> None:
     from PIL import Image
 
     validate_keys(config, ESA_KEYS, {"image", "net"}, "esa")
-    common.reject_unported(config)
     device = common.device_context(config)
+    mesh = common.mesh_from_config(config, device)
+    if mesh is not None:
+        device = mesh.device
     Image.MAX_IMAGE_PIXELS = None
     paths = config["image"]
     if not isinstance(paths, (list, tuple)):
@@ -59,7 +62,10 @@ def run(config: dict) -> None:
         stem = Path(out_image)
         return str(stem.with_name(f"{stem.stem}_{i}{stem.suffix}"))
 
-    per_scene = common.fetch_labels(common.segment_rasters(seg, rasters))
+    per_scene = common.fetch_labels(
+        common.segment_rasters(seg, rasters, mesh))
+    if not common.is_lead(mesh):
+        return
     for i, labels in enumerate(per_scene):
         if config.get("output"):
             out_dir = (config["output"] if len(per_scene) == 1

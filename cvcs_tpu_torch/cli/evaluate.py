@@ -14,7 +14,12 @@ spec sets ``requires_context``.
 ``net: Ensemble`` with ``ensemble_config`` (a map of net name ->
 checkpoint) evaluates the members' majority vote, whose labels are used
 as they come. Runs on the card unless the config says ``device: cpu``.
-``mesh`` raises, naming its ROADMAP item.
+
+``mesh: {data: N}`` (N ranks, JAX ``cli/evaluate.py:36-80``): each rank
+takes its share of every batch (a batch that does not split runs whole
+and counts on the first rank of the data group), the confusion matrices
+are summed over the data group, and rank 0 prints the tables and draws the
+plots.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 
 from cvcs_tpu_torch.cli import common
 from cvcs_tpu_torch.config.loader import EVAL_KEYS, validate_keys
+from cvcs_tpu_torch.core import mesh as mesh_lib
 from cvcs_tpu_torch.data.loader import ChunkLoader
 from cvcs_tpu_torch.metrics import confusion as conf_lib
 from cvcs_tpu_torch.metrics import scores
@@ -36,8 +42,11 @@ def evaluate(config: dict) -> dict:
     return the metric dict (``print_metrics``')."""
     validate_keys(config, EVAL_KEYS, {"dataset", "net", "patch_size"},
                   "evaluation")
-    common.reject_unported(config)
     device = common.device_context(config)
+    mesh = common.mesh_from_config(config, device)
+    if mesh is not None:
+        device = mesh.device
+    lead = common.is_lead(mesh)
     loader = ChunkLoader(
         config["dataset"], chunk_size=1, patch_size=config["patch_size"],
         load_context=bool(config.get("load_context")),
@@ -57,20 +66,32 @@ def evaluate(config: dict) -> dict:
             chunk = loader.get_chunk(c, shuffle_patches=False)
             conf = conf_lib.confusion_matrix(num_classes, device)
             for batch in chunk.batches(batch_size, drop_last=False):
-                ctx = batch.context if spec.requires_context else None
-                pred = forward(model, batch.image.to(torch.float32), ctx)
+                image, mask, ctx, valid = batch.image, batch.mask, \
+                    batch.context if spec.requires_context else None, \
+                    batch.valid
+                if mesh is not None:
+                    if mesh_lib.data_slice(len(image), mesh) is None:
+                        if mesh.data_index:
+                            continue   # counted by the group's first rank
+                    else:
+                        image, mask, ctx, valid = mesh_lib.shard_batch(
+                            (image, mask, ctx, valid), mesh)
+                pred = forward(model, image.to(torch.float32), ctx)
                 if spec.returns_logits:
                     pred = pred.argmax(-1)
-                mask = batch.mask
-                if batch.valid is not None:
+                if valid is not None:
                     # padding samples: an out-of-range target drops them
-                    mask = torch.where(batch.valid[:, None, None], mask,
+                    mask = torch.where(valid[:, None, None], mask,
                                        num_classes + 1)
                 conf_lib.update_confusion(conf, pred.to(torch.int32), mask,
                                           num_classes, ignore)
+            if mesh is not None:
+                conf = mesh_lib.all_reduce_sum(conf, mesh.data_group)
             host.fold(conf)
 
-    metrics = scores.print_metrics(host.total)
+    metrics = scores.print_metrics(host.total, silent=not lead)
+    if not lead:
+        return metrics
     if config.get("confusion_matrix"):
         from cvcs_tpu_torch.metrics.plots import plot_confusion
 

@@ -25,8 +25,16 @@ Config keys: ``watch_dir``, ``net`` (``Ensemble`` with
 ``border_correction``, ``batch_tiles``, ``tta``, ``precision``,
 ``device``, ``poll_s`` (2.0), ``max_batch`` (8), ``max_retries`` (3),
 ``settle_s`` (0), ``max_polls`` (stop after N scans; default: run until
-interrupted). Rasters decode with PIL; ``mesh`` raises (multi-device is
-not ported yet).
+interrupted). Rasters decode with PIL.
+
+``mesh`` (a launch of one rank per device): each batch runs through
+``common.segment_rasters`` over the mesh (scenes over ``data``, rows over
+``spatial``). Rank 0 alone polls and lists the directory, reads and writes
+the journal and writes the masks; it broadcasts each poll's batches of
+names before any rank decodes, since a rank that listed the directory on
+its own could see another listing and run other collectives. The ranks
+then agree on which rasters decoded everywhere, and run the same
+collectives in the same order.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from PIL import Image
 
 from cvcs_tpu_torch.cli import common
 from cvcs_tpu_torch.config.loader import SERVE_KEYS, validate_keys
+from cvcs_tpu_torch.core import mesh as mesh_lib
 from cvcs_tpu_torch.infer import InferenceConfig, SceneSegmenter
 
 RASTER_SUFFIXES = {".png", ".jpg", ".jpeg", ".tif", ".tiff"}
@@ -86,14 +95,19 @@ def _read_journal(manifest) -> tuple[set, dict, dict]:
 def serve(config: dict) -> int:
     """Run the watch loop; returns the number of rasters processed."""
     validate_keys(config, SERVE_KEYS, {"watch_dir", "net"}, "serve")
-    common.reject_unported(config)
     device = common.device_context(config)
+    mesh = common.mesh_from_config(config, device)
+    if mesh is not None:
+        device = mesh.device
+    lead = common.is_lead(mesh)
     Image.MAX_IMAGE_PIXELS = None
     watch = Path(config["watch_dir"])
     out_dir = Path(config.get("output", watch / "output"))
-    out_dir.mkdir(parents=True, exist_ok=True)
     manifest = out_dir / "manifest.jsonl"
-    done, claimed, error_sigs = _read_journal(manifest)
+    done, claimed, error_sigs = set(), {}, {}
+    if lead:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        done, claimed, error_sigs = _read_journal(manifest)
 
     p = int(config.get("patch_size", 512))
     model, spec, num_classes = common.build_apply(config, device)
@@ -119,8 +133,9 @@ def serve(config: dict) -> int:
     polls = 0
 
     def journal(entry: dict) -> None:
-        with manifest.open("a") as mf:
-            mf.write(json.dumps(entry) + "\n")
+        if lead:
+            with manifest.open("a") as mf:
+                mf.write(json.dumps(entry) + "\n")
         done.add(entry["name"])
 
     def _sig(f):
@@ -129,6 +144,10 @@ def serve(config: dict) -> int:
             return (st.st_size, st.st_mtime_ns)
         except OSError:
             return None
+
+    def say(line: str) -> None:
+        if lead:
+            print(line, flush=True)
 
     def fail(f, err) -> None:
         # retries count only against an UNCHANGED file: a raster still
@@ -144,11 +163,10 @@ def serve(config: dict) -> int:
                      "sig": list(sig) if sig else None})
             error_sigs[f.name] = sig
             failures.pop(f.name, None)
-            print(f"giving up on {f.name} after {n} attempts: {err}",
-                  flush=True)
+            say(f"giving up on {f.name} after {n} attempts: {err}")
         else:
-            print(f"failed {f.name} (attempt {n}/{max_retries}, will "
-                  f"retry): {err}", flush=True)
+            say(f"failed {f.name} (attempt {n}/{max_retries}, will "
+                f"retry): {err}")
 
     def export(batch, labels, t0) -> None:
         nonlocal n_processed
@@ -162,7 +180,8 @@ def serve(config: dict) -> int:
                 # a same-stem sibling (a.png vs a.tif) owns this name
                 mask = f"{f.stem}{f.suffix.replace('.', '_')}_mask.png"
             claimed[mask] = f.name
-            seg.export_map(lab, out_dir / mask)
+            if lead:
+                seg.export_map(lab, out_dir / mask)
             masks.append(mask)
         for f, lab, mask in zip(batch, labels, masks):
             journal({"name": f.name, "mask": mask,
@@ -171,7 +190,7 @@ def serve(config: dict) -> int:
             failures.pop(f.name, None)
             error_sigs.pop(f.name, None)
             n_processed += 1
-            print(f"served {f.name} -> {mask}", flush=True)
+            say(f"served {f.name} -> {mask}")
 
     def _settled(f, now):
         try:
@@ -189,18 +208,20 @@ def serve(config: dict) -> int:
             # the journaled error was for different content: re-admit
             done.discard(f.name)
             error_sigs.pop(f.name, None)
-            print(f"re-admitting replaced {f.name} "
-                  "(signature differs from journaled error)", flush=True)
+            say(f"re-admitting replaced {f.name} "
+                "(signature differs from journaled error)")
             return True
         return False
 
-    while True:
+    def plan() -> list[list[str]]:
+        """This poll's batches of names (rank 0): admissible, settled
+        rasters grouped by a header-only size probe, at most ``max_batch``
+        a batch."""
         now = time.time()
         pending = sorted(
             f for f in watch.iterdir()
             if f.suffix.lower() in RASTER_SUFFIXES and _admissible(f)
             and _settled(f, now))
-        # header-only size probe: group same-shape arrivals
         groups: dict[tuple, list] = {}
         for f in pending:
             try:
@@ -208,33 +229,51 @@ def serve(config: dict) -> int:
                     groups.setdefault(im.size, []).append(f)
             except Exception as err:   # mid-copy / not an image
                 fail(f, err)
-        for files in groups.values():
-            for i in range(0, len(files), max_batch):
-                batch, rasters = [], []
-                for f in files[i:i + max_batch]:   # decode one batch
-                    try:
-                        rasters.append(_decode_rgb(f))
-                        batch.append(f)
-                    except Exception as err:
-                        fail(f, err)
-                if not batch:
+        return [[str(f) for f in files[i:i + max_batch]]
+                for files in groups.values()
+                for i in range(0, len(files), max_batch)]
+
+    def run_batch(files: list) -> None:
+        decoded = []
+        for f in files:                    # decode one batch
+            try:
+                decoded.append(_decode_rgb(f))
+            except Exception as err:
+                decoded.append(err)
+        # a raster runs only if it decoded on every rank
+        ok = mesh_lib.every_rank(
+            [not isinstance(d, Exception) for d in decoded], mesh)
+        batch, rasters = [], []
+        for f, d, good in zip(files, decoded, ok):
+            if good:
+                batch.append(f)
+                rasters.append(d)
+            else:
+                fail(f, d if isinstance(d, Exception) else RuntimeError(
+                    "the raster did not decode on every rank"))
+        if not batch:
+            return
+        t0 = time.time()
+        try:
+            export(batch, common.segment_rasters(seg, rasters, mesh), t0)
+        except Exception as err:
+            if len(batch) == 1:
+                fail(batch[0], err)
+                return
+            # isolate the poison pill: run each raster alone
+            for f, r in zip(batch, rasters):
+                if f.name in done:   # exported before the raise
                     continue
-                t0 = time.time()
+                t1 = time.time()
                 try:
-                    export(batch, common.segment_rasters(seg, rasters), t0)
-                except Exception as err:
-                    if len(batch) == 1:
-                        fail(batch[0], err)
-                        continue
-                    # isolate the poison pill: run each raster alone
-                    for f, r in zip(batch, rasters):
-                        if f.name in done:   # exported before the raise
-                            continue
-                        t1 = time.time()
-                        try:
-                            export([f], common.segment_rasters(seg, [r]), t1)
-                        except Exception as err2:
-                            fail(f, err2)
+                    export([f], common.segment_rasters(seg, [r], mesh), t1)
+                except Exception as err2:
+                    fail(f, err2)
+
+    while True:
+        batches = mesh_lib.broadcast_object(plan() if lead else None, mesh)
+        for names in batches:
+            run_batch([Path(n) for n in names])
         polls += 1
         if max_polls is not None and polls >= int(max_polls):
             return n_processed

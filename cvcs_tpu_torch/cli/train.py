@@ -10,16 +10,23 @@ torch.profiler trace of the training to ``<profile_dir>/trace.json``.
 multi-scale crops to the training chunks, ``async_checkpoints`` writes
 the epoch checkpoints from a thread, and ``load_checkpoint`` (a path or
 ``auto``) resumes from a checkpoint of the port or an Orbax one of the
-JAX package. ``mesh`` over more than one device raises
-``NotImplementedError`` naming its ROADMAP item.
+JAX package.
+
+``mesh: {data: N}`` trains data-parallel over N ranks (``torchrun
+--nproc-per-node N -m cvcs_tpu_torch.cli.train cfg.yaml``; see
+``train/loop.py``): every rank builds the same chunks and steps on its
+share of each batch, and rank 0 writes the logs and checkpoints. Each
+rank runs the fused window-attention kernels on its own share (the JAX
+package's ``CVCS_TPU_FUSED_ATTN_TRAIN=0`` under a mesh is a knob of the
+TPU partitioner and has no counterpart). ``mesh.spatial > 1``
+(spatially partitioned training) raises ``NotImplementedError`` naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import sys
 import traceback
-
-import torch
 
 from cvcs_tpu_torch.cli import common
 from cvcs_tpu_torch.config.loader import TRAIN_KEYS, validate_keys
@@ -35,19 +42,14 @@ from cvcs_tpu_torch.utils.profiling import trace
 from cvcs_tpu_torch.utils.tables import get_table_cls
 
 # train config keys of paths the port does not run yet -> the ROADMAP item
-# (a mesh of one device is no mesh and runs)
 UNPORTED_TRAIN_KEYS = {
-    "mesh": "multi-device training is not yet ported (ROADMAP.md Queue 1 "
-            "item 14)",
+    "mesh": "spatially partitioned training (mesh spatial > 1) is not yet "
+            "ported (ROADMAP.md Queue 1 item 14d)",
 }
 
 
-def reject_unported_train_keys(config: dict, device: torch.device) -> None:
-    mesh = config.get("mesh") or {}
-    # ``data: null`` means every device; one device is no mesh at all
-    n_data = mesh.get("data") or (torch.cuda.device_count()
-                                  if device.type == "cuda" else 1)
-    if mesh and (n_data > 1 or mesh.get("spatial", 1) > 1):
+def reject_unported_train_keys(config: dict) -> None:
+    if int((config.get("mesh") or {}).get("spatial", 1)) > 1:
         raise NotImplementedError(
             f"config key 'mesh': {UNPORTED_TRAIN_KEYS['mesh']}")
 
@@ -58,7 +60,10 @@ def build_trainer(config: dict) -> Trainer:
                    "patch_size", "batch_size", "loss", "opt",
                    "checkpoint_directory"}, "train")
     device = common.device_context(config)
-    reject_unported_train_keys(config, device)
+    reject_unported_train_keys(config)
+    mesh = common.mesh_from_config(config, device)
+    if mesh is not None:
+        device = mesh.device
     aug_flag = config.get("augmentation")
     if aug_flag == "fused":
         augment = AugmentConfig(mode="fused")
@@ -141,11 +146,11 @@ def build_trainer(config: dict) -> Trainer:
         raise ValueError(f"eval_downscale={train_cfg.eval_downscale} must "
                          f"divide patch_size={config['patch_size']}")
     trainer = Trainer(spec, state, loss_fn, loader_train, loader_val,
-                      train_cfg)
+                      train_cfg, mesh=mesh)
     ckpt = config.get("load_checkpoint")
     if ckpt == "auto":
         ckpt = latest_checkpoint(config["checkpoint_directory"])
-        if ckpt is None:
+        if ckpt is None and common.is_lead(mesh):
             print("No checkpoint to resume from; starting fresh", flush=True)
     if ckpt:
         trainer.resume(ckpt)

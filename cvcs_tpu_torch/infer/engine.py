@@ -21,6 +21,15 @@ the device, optionally as a batch of halo-overlapped blocks. The two
 host-banded paths bring each band's labels back one band late, on a copy
 stream, so that the copy and the host's preparation of the next band
 overlap the next band's compute.
+
+The multi-device paths (one rank per device, :mod:`cvcs_tpu_torch.core.mesh`):
+:meth:`SceneSegmenter.predict_scene_sharded` and
+:meth:`SceneSegmenter.predict_scene_fullconv_sharded` give each rank of
+the spatial group a strip of tile rows, extended by the neighbours' halo
+rows (:func:`cvcs_tpu_torch.parallel.halo.exchange_row_halo`);
+:meth:`SceneSegmenter.predict_scenes_sharded` spreads a scene stack over
+the data axis as well. Each returns the whole label map on every rank (an
+all-gather), as ``jax.device_get`` of the JAX result gives any caller.
 """
 
 from __future__ import annotations
@@ -33,8 +42,10 @@ import numpy as np
 import torch
 
 from cvcs_tpu_torch.core.device import resolve_device
+from cvcs_tpu_torch.core.mesh import DATA_AXIS, SPATIAL_AXIS, all_gather_cat
 from cvcs_tpu_torch.data.geometry import TileGrid
 from cvcs_tpu_torch.data.palette import GID15Palette
+from cvcs_tpu_torch.parallel.halo import exchange_row_halo
 
 
 def labels_to_host(labels) -> np.ndarray:
@@ -481,6 +492,186 @@ class SceneSegmenter:
                                device=self.device)
         scene_pad, rows, cols = self.pad_scene(scene)
         return self._run(scene_pad[None], rows, cols, tile_ids=ids)
+
+    # -- multi-device paths: rows over the spatial axis, scenes over data --
+    @staticmethod
+    def _with_channels(arr) -> np.ndarray:
+        arr = np.asarray(arr)
+        return arr[..., None] if arr.ndim == 2 else arr
+
+    def predict_scene_sharded(self, scene, mesh) -> torch.Tensor:
+        """The window path with the scene's tile rows spread over the
+        mesh's ``spatial`` axis: each rank segments its strip, healed at
+        its edges by the neighbours' halo rows. The labels of
+        :meth:`predict_scene`, non-tile-aligned rasters included: the
+        raster's right overhang past the tile grid rides in the strip's
+        (unsharded) column padding, and its bottom overhang is written
+        into the last spatial rank's lower halo, where the exchange gives
+        zeros. The tile rows must divide over the spatial axis. Returns
+        the (H', W') uint8 map on every rank's device."""
+        p = self.cfg.patch_size
+        bc, _ = self._window()
+        pad = bc - p
+        n_sp = mesh.shape[SPATIAL_AXIS]
+        raw = self._with_channels(scene)
+        grid = self._grid(raw.shape)
+        h, w = grid.rows * p, grid.cols * p
+        if grid.rows % n_sp:
+            raise ValueError(
+                f"{grid.rows} tile rows do not shard over {n_sp} devices")
+        hp = min(raw.shape[0], h + pad)   # real bottom overhang rows
+        wp = min(raw.shape[1], w + pad)   # real right overhang cols
+        hl, s = h // n_sp, mesh.spatial_index
+        strip = raw[s * hl:(s + 1) * hl, :wp]
+        bottom = None
+        if pad and s == n_sp - 1:
+            bottom = np.zeros((pad, w + 2 * pad) + raw.shape[2:], raw.dtype)
+            if hp > h:
+                bottom[:hp - h, pad:pad + wp] = raw[h:hp, :wp]
+        strip = self._upload_padded(strip, 0, 0, pad, pad - (wp - w))
+        return self._sharded_scene_program_edge(
+            mesh, grid.rows, grid.cols)(strip, bottom)
+
+    def _sharded_scene_program_edge(self, mesh, rows: int, cols: int):
+        """:meth:`sharded_scene_program` whose function takes a second
+        input: the (pad, cols*p + 2*pad, C) rows that the LAST spatial
+        rank writes over the exchange's zero lower halo, the raster's real
+        bottom overhang (see :meth:`predict_scene_sharded`); None keeps
+        the zeros."""
+        p = self.cfg.patch_size
+        bc, _ = self._window()
+        pad = bc - p
+        n_sp = mesh.shape[SPATIAL_AXIS]
+        if rows % n_sp:
+            raise ValueError(
+                f"{rows} tile rows do not shard over {n_sp} devices")
+        rows_local = rows // n_sp
+
+        def fn(strip, bottom=None) -> torch.Tensor:
+            strip = torch.as_tensor(self._with_channels(strip)
+                                    if not isinstance(strip, torch.Tensor)
+                                    else strip).to(self.device)
+            want = (rows_local * p, cols * p + 2 * pad)
+            if tuple(strip.shape[:2]) != want:
+                raise ValueError(f"strip {tuple(strip.shape[:2])} is not "
+                                 f"the rank's {want} rows x padded columns")
+            ext = exchange_row_halo(strip, pad, mesh)
+            if pad and bottom is not None and mesh.spatial_index == n_sp - 1:
+                ext[-pad:] = torch.as_tensor(bottom).to(ext.device)
+            lab = self._run(ext[None], rows_local, cols)[0]
+            return all_gather_cat(lab, mesh.spatial_group, 0)
+
+        return fn
+
+    def sharded_scene_program(self, mesh, rows: int, cols: int):
+        """The per-rank program behind :meth:`predict_scene_sharded` for a
+        (rows, cols)-tile scene, for callers on several hosts that each
+        hold only their strip: ``fn(strip)`` takes this rank's
+        (rows/n * p, cols*p + 2*(bc - p), C) uint8 strip, its columns
+        zero-padded by bc - p on each side (a host array or a tensor),
+        exchanges the halo across the process boundary, and returns the
+        whole (rows*p, cols*p) uint8 map on every rank."""
+        edge = self._sharded_scene_program_edge(mesh, rows, cols)
+        return lambda strip: edge(strip)
+
+    def predict_scenes_sharded(self, scenes, mesh) -> torch.Tensor:
+        """Scene-parallel inference: the scene stack spreads over the
+        mesh's ``data`` axis (independent scenes, no communication on that
+        axis) and each scene's tile rows over the ``spatial`` axis, whose
+        halo exchange stays inside the rank's own spatial group, so no
+        strip reaches another scene. The labels of :meth:`predict_scene`
+        run per scene, the bottom and right overhang included (see
+        :meth:`predict_scene_sharded`). The scene count must divide over
+        the data axis and the tile rows over the spatial axis; the scenes
+        share one shape. Returns the (S, H', W') uint8 labels on every
+        rank's device."""
+        p = self.cfg.patch_size
+        bc, _ = self._window()
+        pad = bc - p
+        n_dp = mesh.shape[DATA_AXIS]
+        n_sp = mesh.shape[SPATIAL_AXIS]
+        stack = (np.stack([np.asarray(s) for s in scenes])
+                 if isinstance(scenes, (list, tuple)) else np.asarray(scenes))
+        if stack.ndim == 3:
+            stack = stack[..., None]
+        if stack.shape[0] % n_dp:
+            raise ValueError(
+                f"{stack.shape[0]} scenes do not shard over the data "
+                f"axis ({n_dp} devices)")
+        grid = self._grid(stack.shape[1:])
+        if grid.rows % n_sp:
+            raise ValueError(
+                f"{grid.rows} tile rows do not shard over the spatial "
+                f"axis ({n_sp} devices)")
+        h, w = grid.rows * p, grid.cols * p
+        hp = min(stack.shape[1], h + pad)   # real bottom overhang rows
+        wp = min(stack.shape[2], w + pad)   # real right overhang cols
+        sl, hl = stack.shape[0] // n_dp, h // n_sp
+        d, s = mesh.data_index, mesh.spatial_index
+        mine = stack[d * sl:(d + 1) * sl]
+        x = self._upload_padded(mine[:, s * hl:(s + 1) * hl, :wp], 0, 0,
+                                pad, pad - (wp - w))
+        ext = exchange_row_halo(x, pad, mesh, axis=1)
+        if pad and s == n_sp - 1 and hp > h:
+            ext[:, hl + pad:hl + pad + hp - h, pad:pad + wp] = \
+                torch.from_numpy(np.ascontiguousarray(
+                    mine[:, h:hp, :wp])).to(ext.device)
+        lab = self._run(ext, hl // p, grid.cols)
+        lab = all_gather_cat(lab, mesh.spatial_group, 1)
+        return all_gather_cat(lab, mesh.data_group, 0)
+
+    def predict_scene_fullconv_sharded(self, scene, mesh,
+                                       col_tiles: int | None = None,
+                                       row_tiles: int | None = None
+                                       ) -> torch.Tensor:
+        """Full-convolution inference with the tile rows spread over the
+        mesh's ``spatial`` axis: each rank forwards its strip of rows/n
+        tile rows, extended by ``halo`` rows of its neighbours, as one
+        convolution (or a ``row_tiles x col_tiles`` block grid). The
+        labels of :meth:`predict_padded_fullconv` with ``band_rows =
+        rows/n`` (and the same blocks) on a scene cropped to its tile
+        grid: the scene's edges get zero context here, where the
+        single-device path reads real raster pixels past the grid. The
+        tile rows must divide over the spatial axis. Returns the
+        (rows*p, cols*p) uint8 map on every rank's device."""
+        self._reject_tta_fullconv()
+        p = self.cfg.patch_size
+        bc, _ = self._window()
+        halo = (bc - p) // 2
+        n_sp = mesh.shape[SPATIAL_AXIS]
+        scene = self._with_channels(scene)
+        grid = self._grid(scene.shape)
+        rows, cols = grid.rows, grid.cols
+        h, w = rows * p, cols * p
+        if rows % n_sp:
+            raise ValueError(
+                f"{rows} tile rows do not shard over {n_sp} devices")
+        rows_local = rows // n_sp
+        if col_tiles is not None and (col_tiles < 1 or cols % col_tiles):
+            raise ValueError(
+                f"col_tiles={col_tiles} must be a positive divisor of "
+                f"the scene's {cols} tile columns")
+        rt = row_tiles or rows_local
+        if rows_local % rt:
+            raise ValueError(
+                f"row_tiles={row_tiles} must divide the per-device "
+                f"{rows_local} tile rows")
+        self._check_fullconv_divisible(
+            halo, [rt * p + 2 * halo] if col_tiles is not None
+            else [rows_local * p + 2 * halo],
+            (col_tiles if col_tiles is not None else cols) * p + 2 * halo)
+        hl, s = rows_local * p, mesh.spatial_index
+        strip = self._upload_padded(scene[s * hl:(s + 1) * hl, :w], 0, 0,
+                                    halo, halo)
+        ext = exchange_row_halo(strip, halo, mesh)
+        if col_tiles is None:
+            lab = self._fullconv_band(ext, 0, hl + 2 * halo, hl, w, halo)
+        else:
+            lab = self._fullconv_band_chunked(
+                ext, 0, rt * p + 2 * halo, col_tiles * p + 2 * halo,
+                rows_local // rt, cols // col_tiles, rt * p, col_tiles * p,
+                halo)
+        return all_gather_cat(lab, mesh.spatial_group, 0)
 
     # -- exports ---------------------------------------------------------------
     def export_patches(self, labels, out_dir, start_index: int = 0,

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from cvcs_tpu_torch.core import mesh as mesh_lib
 from cvcs_tpu_torch.ops.resize import upsample_bilinear
 
 
@@ -110,12 +111,31 @@ def batch_norm_eval(x, bn: nn.BatchNorm2d) -> torch.Tensor:
 def batch_stats(x):
     """f32 (or f64) batch statistics over every axis but the last, with
     flax's fast variance max(E[x^2] - E[x]^2, 0): (x in f32, mean,
-    biased var)."""
+    biased var, sample count).
+
+    Under :func:`cvcs_tpu_torch.core.mesh.data_parallel` the statistics
+    span the global batch, as JAX's do under a sharded ``jit``: the
+    per-channel sums of x and x^2 and the count are summed over the data
+    group, differentiably (the backward sums each rank's upstream
+    gradient of the statistics, so every rank's share sees the global
+    ones), and the count is the global count."""
     xf = at_least_f32(x)
     axes = tuple(range(x.dim() - 1))
-    mean = xf.mean(axes)
-    var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
-    return xf, mean, var
+    n = xf.numel() // xf.shape[-1]
+    if mesh_lib.active_data_mesh() is None:
+        mean = xf.mean(axes)
+        var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+        return xf, mean, var, n
+    c = xf.shape[-1]
+    sums = mesh_lib.dp_sum(torch.cat([
+        xf.sum(axes), (xf * xf).sum(axes),
+        xf.new_full((1,), float(n))]))
+    count = sums[-1]
+    mean = sums[:c] / count
+    var = torch.clamp(sums[c:2 * c] / count - mean * mean, min=0.0)
+    # the ranks' shares are equal, so the global count is known on the
+    # host without reading ``count`` back
+    return xf, mean, var, n * mesh_lib.dp_size()
 
 
 @torch.no_grad()
@@ -124,7 +144,8 @@ def update_running_stats(bn: nn.BatchNorm2d, mean, var, n: int) -> None:
     (``bn.momentum``: 0.1 by default, MobileNet's 0.01), written as flax
     writes it, running = m * running + (1 - m) * batch with m = 1 -
     momentum; the running variance from the UNBIASED variance (factor n /
-    (n - 1)), as torch does."""
+    (n - 1), ``n`` the samples the statistics span: every rank's under
+    data parallelism), as torch does."""
     m = 1.0 - bn.momentum
     correction = n / max(n - 1, 1)
     bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
@@ -138,8 +159,8 @@ def batch_norm_train(x, bn: nn.BatchNorm2d) -> torch.Tensor:
     from ``bn``: 1e-5, or MobileNet's and GoogLeNet's 1e-3), and the
     running statistics updated with ``bn``'s momentum
     (:func:`update_running_stats`)."""
-    xf, mean, var = batch_stats(x)
-    update_running_stats(bn, mean, var, xf.numel() // xf.shape[-1])
+    xf, mean, var, n = batch_stats(x)
+    update_running_stats(bn, mean, var, n)
     return _affine(xf, mean, var, bn.weight, bn.bias, bn.eps, x.dtype)
 
 
@@ -158,7 +179,9 @@ class SeededDropout(nn.Module):
 
     The noise comes from the module's own ``torch.Generator`` on the
     input's device, never the global RNG: :func:`seed_dropout` seeds it
-    from a (seed, step) pair before each train step. ``keep_mask`` (a
+    from a (seed, step) pair before each train step. Under
+    :func:`cvcs_tpu_torch.core.mesh.data_parallel` each rank draws the
+    global batch's mask and keeps its own rows. ``keep_mask`` (a
     boolean tensor of the input's shape), when set, is used instead of a
     draw, so tests can feed both frameworks one mask."""
 
@@ -185,8 +208,14 @@ class SeededDropout(nn.Module):
             if self._gen is None or self._gen.device != x.device:
                 self._gen = torch.Generator(device=x.device)
                 self._gen.manual_seed(self._seed)
-            mask = torch.rand(x.shape, generator=self._gen,
-                              device=x.device) < keep
+            # under data parallelism: the global batch's mask, this
+            # rank's rows of it, so every rank draws what one process
+            # draws for the whole batch
+            n, i = mesh_lib.dp_size(), mesh_lib.dp_index()
+            b = x.shape[0]
+            mask = torch.rand((b * n,) + tuple(x.shape[1:]),
+                              generator=self._gen,
+                              device=x.device)[i * b:(i + 1) * b] < keep
         return torch.where(mask, x / x.new_tensor(keep), x.new_zeros(()))
 
 
@@ -266,9 +295,9 @@ class ConvBNAct(nn.Module):
     def _train_block(self, x):
         conv, bn = self.layer
         y = conv_nhwc(x, conv, padding=1)
-        yf, mean, var = batch_stats(y)
+        yf, mean, var, n = batch_stats(y)
         y = _affine(yf, mean, var, bn.weight, bn.bias, bn.eps, y.dtype)
-        return torch.relu(y), mean, var
+        return torch.relu(y), mean, var, n
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv, bn = self.layer
@@ -276,12 +305,11 @@ class ConvBNAct(nn.Module):
             y = torch.relu(batch_norm_eval(conv_nhwc(x, conv, padding=1), bn))
         else:
             if self.remat and torch.is_grad_enabled():
-                y, mean, var = checkpoint(self._train_block, x,
-                                          use_reentrant=False)
+                y, mean, var, n = checkpoint(self._train_block, x,
+                                             use_reentrant=False)
             else:
-                y, mean, var = self._train_block(x)
-            update_running_stats(bn, mean.detach(), var.detach(),
-                                 y.numel() // y.shape[-1])
+                y, mean, var, n = self._train_block(x)
+            update_running_stats(bn, mean.detach(), var.detach(), n)
         return y
 
 

@@ -27,6 +27,11 @@ versions :func:`ce_sums_plain` and :func:`ce_grad_plain`.
 :func:`build_fused_ce` is the drop-in loss for a train step or a
 ``Trainer``. ``launches`` counts K3 launches, ``bwd_launches`` K4
 launches.
+
+Under :func:`cvcs_tpu_torch.core.mesh.data_parallel` the forward sums
+K3's two sums over the data group before their ratio (the loss of the
+global batch), and K4 divides by the global sum w, so each rank gets the
+gradient of the global loss for its own logits.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import functools
 
 import torch
 
+from cvcs_tpu_torch.core import mesh as mesh_lib
 from cvcs_tpu_torch.core.device import resolve_device
 
 KERNEL = dict(
@@ -177,6 +183,14 @@ class FusedCrossEntropyFn(torch.autograd.Function):
         else:
             loss_sum, wsum = ce_sums_plain(logits, labels, weights)
             loss = loss_sum / torch.clamp(wsum, min=1e-12)
+        dp = mesh_lib.active_data_mesh()
+        if dp is not None:
+            # the global batch's sums, before their ratio; K4 then scales
+            # this rank's gradient by the global sum w
+            sums = mesh_lib.all_reduce_sum(torch.stack([loss_sum, wsum]),
+                                           dp.data_group)
+            wsum = sums[1].clone()
+            loss = sums[0] / torch.clamp(wsum, min=1e-12)
         ctx.save_for_backward(logits, labels, weights, wsum)
         return loss
 

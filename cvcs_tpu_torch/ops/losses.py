@@ -12,11 +12,20 @@ docs name, "DL" and "DEL" (CE + Dice). Semantics are the JAX package's:
   ``ignore_background``);
 * one-hot targets are comparisons with the class index, so an
   out-of-range label has an all-zero row (``jax.nn.one_hot``'s rule).
+
+Under :func:`cvcs_tpu_torch.core.mesh.data_parallel` each loss reduces
+over the global batch, as JAX's do on a sharded batch: the sums behind
+cross-entropy's sum(w * ce) / sum(w), the MSE mean and Dice's per-class
+sums are summed over the data group, so every rank computes the loss of
+the global batch. Its gradient reaches this rank's logits alone (the
+ranks' parameter gradients are then summed by the train step).
 """
 
 from __future__ import annotations
 
 import torch
+
+from cvcs_tpu_torch.core import mesh as mesh_lib
 
 
 def _one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -40,14 +49,20 @@ def cross_entropy(logits, labels, weights=None, ignore_index=None):
         w = (weights.to(torch.float32) * onehot).sum(-1) * valid
     else:
         w = valid
-    return (ce * w).sum() / torch.clamp(w.sum(), min=1e-12)
+    sums = mesh_lib.dp_sum(torch.stack([(ce * w).sum(), w.sum()]),
+                           own_grad=True)
+    return sums[0] / torch.clamp(sums[1], min=1e-12)
 
 
 def mse(logits, labels):
     """Mean squared error between the class scores and the one-hot target."""
     logits = logits.to(torch.float32)
     onehot = _one_hot(labels.to(torch.int64), logits.shape[-1])
-    return ((logits - onehot) ** 2).mean()
+    sq = (logits - onehot) ** 2
+    if mesh_lib.active_data_mesh() is None:
+        return sq.mean()
+    return (mesh_lib.dp_sum(sq.sum(), own_grad=True)
+            / (sq.numel() * mesh_lib.dp_size()))
 
 
 def dice(logits, labels, ignore_index=None, eps: float = 1.0):
@@ -60,8 +75,9 @@ def dice(logits, labels, ignore_index=None, eps: float = 1.0):
         probs = probs * keep
         onehot = onehot * keep
     axes = tuple(range(probs.dim() - 1))
-    inter = (probs * onehot).sum(axes)
-    denom = probs.sum(axes) + onehot.sum(axes)
+    inter = mesh_lib.dp_sum((probs * onehot).sum(axes), own_grad=True)
+    denom = mesh_lib.dp_sum(probs.sum(axes) + onehot.sum(axes),
+                            own_grad=True)
     return 1.0 - ((2.0 * inter + eps) / (denom + eps)).mean()
 
 

@@ -173,27 +173,37 @@ def load_checkpoint(path: str | Path, state):
 
 
 def _ranked(directory: Path) -> list[tuple[tuple[int, int], Path]]:
-    """Complete checkpoints, oldest first: ``checkpoint{N}_preempt`` (mid
-    epoch N) ranks after ``checkpoint{N}`` and before ``checkpoint{N+1}``."""
+    """Complete checkpoints, oldest first: the port's (``state.pt``
+    written) and the JAX package's Orbax ones (``state/`` landed, as
+    ``orbax_read.is_orbax_checkpoint`` says), ranked alike, as the JAX
+    rule ranks its own (``cvcs_tpu/train/checkpoint.py:200-225``):
+    ``checkpoint{N}_preempt`` (mid epoch N) after ``checkpoint{N}`` and
+    before ``checkpoint{N+1}``. A half-written one (an
+    ``*.orbax-checkpoint-tmp-*`` directory, or ``meta.json`` alone) is
+    passed by."""
     if not directory.is_dir():
         return []
     out = []
     for child in directory.iterdir():
         m = _CKPT_RE.match(child.name)
-        if m and (child / STATE).is_file():
+        if m and ((child / STATE).is_file()
+                  or orbax_read.is_orbax_checkpoint(child)):
             out.append(((int(m.group(1)), 1 if m.group(2) else 0), child))
     return sorted(out)
 
 
 def latest_checkpoint(directory: str | Path) -> Path | None:
-    """The newest complete checkpoint under ``directory``, or None."""
+    """The newest complete checkpoint under ``directory`` (the port's or
+    an Orbax one of the JAX package), or None."""
     ranked = _ranked(Path(directory))
     return ranked[-1][1] if ranked else None
 
 
 def prune_checkpoints(directory: str | Path, keep: int) -> list[Path]:
-    """Delete all but the newest ``keep`` complete checkpoints; return the
-    deleted paths."""
+    """Delete all but the newest ``keep`` complete checkpoints, Orbax ones
+    of the JAX package included, as its prune deletes them; return the
+    deleted paths. A half-written checkpoint is neither counted nor
+    touched."""
     if keep < 1:
         return []
     doomed = [c for _, c in _ranked(Path(directory))[:-keep]]

@@ -21,6 +21,18 @@ chunk c+1's host decode and upload run while chunk c's steps are still
 queued on the card. A non-finite loss halts training
 (``FloatingPointError``). On the preemption signal the loop finishes the
 chunk in flight, writes ``checkpoint{epoch}_preempt`` and returns.
+
+With a ``mesh`` whose data axis has more than one rank (JAX's ``_shard``,
+``cvcs_tpu/train/loop.py:216-254``, on the data axis): every rank builds
+the same chunk (the shuffle, ``random_shift``, ``random_tps`` and the
+fused augmentation draw from generators seeded alike) and takes its share
+of each batch, as the JAX multi-host branch does; the train, statistics
+and validation-loss steps run data-parallel (``train/step.py``), so the
+losses are the global batches'; the evaluation sums its confusion
+matrices over the data group. Rank 0 alone writes the logs, the
+``metrics_log``, the debug plots and the checkpoints (asynchronous ones
+included), and the other ranks wait for each save at a barrier; the
+preemption flag is agreed between the ranks at each chunk boundary.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from cvcs_tpu_torch.core import mesh as mesh_lib
 from cvcs_tpu_torch.data.loader import ChunkLoader
 from cvcs_tpu_torch.metrics import confusion, scores
 from cvcs_tpu_torch.train import checkpoint as ckpt_lib
@@ -86,7 +99,8 @@ class Trainer:
     def __init__(self, spec, state: TrainState, loss_fn: Callable,
                  train_loader: ChunkLoader, val_loader: ChunkLoader,
                  config: TrainConfig,
-                 log: Callable[[str], None] = lambda s: print(s, flush=True)):
+                 log: Callable[[str], None] = lambda s: print(s, flush=True),
+                 mesh: mesh_lib.Mesh | None = None):
         if config.grad_accum < 1:
             raise ValueError(f"grad_accum={config.grad_accum} must be >= 1")
         if config.grad_accum > 1 and config.batch_size % config.grad_accum:
@@ -95,6 +109,13 @@ class Trainer:
         self.spec = spec
         self.state = state
         self.state.dropout_seed = config.seed ^ 0xD0
+        # the data-parallel mesh (None: one process)
+        self.mesh = (mesh if mesh is not None
+                     and mesh.shape[mesh_lib.DATA_AXIS] > 1 else None)
+        self.lead = self.mesh is None or self.mesh.rank == 0
+        if not self.lead:
+            log = lambda s: None   # noqa: E731 - rank 0 writes the logs
+        mesh_lib.replicate(state.model, self.mesh)
         self.loss_fn = loss_fn
         self.train_loader = train_loader
         self.val_loader = val_loader
@@ -137,6 +158,17 @@ class Trainer:
 
     def _save(self, epoch: int, tag: str = "", confusions: bool = True,
               async_save: bool = False):
+        """Rank 0 writes the checkpoint (and prunes); every rank waits
+        at a barrier until it has been written or, asynchronously,
+        issued."""
+        try:
+            if self.lead:
+                return self._write(epoch, tag, confusions, async_save)
+        finally:
+            mesh_lib.barrier(self.mesh)
+
+    def _write(self, epoch: int, tag: str, confusions: bool,
+               async_save: bool):
         cfg = self.config
         hist = self.conf_history if confusions else None
         path = ckpt_lib.save_checkpoint(
@@ -174,6 +206,20 @@ class Trainer:
         """The batch's context windows for a net that reads them."""
         return batch.context if self.spec.requires_context else None
 
+    def _share(self, batch, micro: int = 1):
+        """(image, mask, context, valid, mesh) of this rank's share of a
+        batch: with a data mesh and a batch that splits over its ranks (in
+        ``micro`` global micro-batches), the rank's slices and the mesh;
+        otherwise the whole batch and None."""
+        ctx = self._context(batch)
+        whole = (batch.image, batch.mask, ctx, batch.valid, None)
+        if self.mesh is None or mesh_lib.data_slice(
+                batch.image.shape[0], self.mesh, micro) is None:
+            return whole
+        image, mask, ctx, valid = mesh_lib.shard_batch(
+            (batch.image, batch.mask, ctx, batch.valid), self.mesh, micro)
+        return image, mask, ctx, valid, self.mesh
+
     def train(self) -> TrainState:
         cfg = self.config
         bs = cfg.batch_size
@@ -191,24 +237,27 @@ class Trainer:
                 last_batch = None
                 for b_idx, batch in enumerate(chunk.batches(
                         bs, drop_last=False, pad_tail=False)):
-                    if cfg.debug_plot and b_idx == 0:
+                    if cfg.debug_plot and b_idx == 0 and self.lead:
                         from cvcs_tpu_torch.utils.debug import debug_plot
                         debug_plot(DEBUG_DIR, epoch, c, b_idx,
                                    batch.image, batch.mask)
                     n = batch.image.shape[0]
                     accum = cfg.grad_accum if n % cfg.grad_accum == 0 else 1
+                    image, mask, ctx, _, dp = self._share(batch, accum)
                     chunk_losses.append(train_step(
-                        self.state, self.loss_fn, batch.image, batch.mask,
+                        self.state, self.loss_fn, image, mask,
                         accum=accum, update_stats=cfg.bn_exact_stats,
-                        context=self._context(batch)))
+                        context=ctx, mesh=self.mesh, sharded=dp is not None))
                     n_patches += n
                     last_batch = batch
                 if not cfg.bn_exact_stats and last_batch is not None:
-                    stats_step(self.state, last_batch.image,
-                               self._context(last_batch))
+                    image, _, ctx, _, dp = self._share(last_batch)
+                    stats_step(self.state, image, ctx, mesh=dp)
                 if pending is not None:
                     self._harvest(pending, epoch)
                 pending = chunk_losses
+                self._preempted = mesh_lib.any_rank(self._preempted,
+                                                    self.mesh)
                 if self._preempted:
                     self._harvest(pending, epoch)
                     # the boundary save in flight may target this directory
@@ -229,7 +278,7 @@ class Trainer:
             self.log("Running validation...")
             n_val_before = len(self.validation_loss_values)
             self.validation_loss_values += self.validation_loss()
-            if cfg.metrics_log:
+            if cfg.metrics_log and self.lead:
                 train_new = self.training_loss_values[n_train_before:]
                 val_new = self.validation_loss_values[n_val_before:]
                 with open(cfg.metrics_log, "a") as f:
@@ -246,13 +295,15 @@ class Trainer:
                 self.log(f"Evaluating precision after epoch {epoch + 1}")
                 host = self.evaluate(cfg.num_classes + 1,
                                      downscale=cfg.eval_downscale)
-                self.last_metrics = scores.print_metrics(host.total)
+                self.last_metrics = scores.print_metrics(
+                    host.total, silent=not self.lead)
                 self.conf_history.append(host.total)
 
             saved = (epoch + 1) % cfg.freq == 0
             if saved:
                 self._save(epoch, async_save=cfg.async_checkpoints)
                 self.log(f"Saved checkpoint {epoch + 1}")
+            self._preempted = mesh_lib.any_rank(self._preempted, self.mesh)
             if self._preempted:
                 ckpt_lib.wait_for_saves()
                 if not saved:
@@ -262,11 +313,12 @@ class Trainer:
                 return self.state
 
         ckpt_lib.wait_for_saves()
-        if cfg.keep_checkpoints:
+        if cfg.keep_checkpoints and self.lead:
             # the in-loop prunes pass an in-flight write by; now it has landed
             for old in ckpt_lib.prune_checkpoints(cfg.checkpoint_directory,
                                                   cfg.keep_checkpoints):
                 self.log(f"Pruned {old.name}")
+        mesh_lib.barrier(self.mesh)   # every checkpoint has landed
         self.log("Training Done!")
         if self.training_loss_values:
             self.log(f"Reached training loss: {self.training_loss_values[-1]}")
@@ -283,9 +335,9 @@ class Trainer:
             chunk = self.val_loader.get_chunk(c, shuffle_patches=False)
             for batch in chunk.batches(self.config.batch_size,
                                        drop_last=False, pad_tail=False):
-                values.append(loss_step(self.state, self.loss_fn,
-                                        batch.image, batch.mask,
-                                        self._context(batch)))
+                image, mask, ctx, _, dp = self._share(batch)
+                values.append(loss_step(self.state, self.loss_fn, image,
+                                        mask, ctx, mesh=dp))
         return torch.stack(values).cpu().tolist() if values else []
 
     def evaluate(self, num_classes: int = 16, batch_size: int = 8,
@@ -300,17 +352,21 @@ class Trainer:
             conf = confusion.confusion_matrix(num_classes,
                                               chunk.images.device)
             for batch in chunk.batches(batch_size, drop_last=False):
-                image, mask = batch.image, batch.mask
+                image, mask, ctx, valid, dp = self._share(batch)
+                if (self.mesh is not None and dp is None
+                        and self.mesh.data_index):
+                    continue   # a batch kept whole counts on one rank
                 if downscale > 1:
                     image, mask = downscale_batch(image, mask, downscale)
                 pred = predict_step(self.state, image,
-                                    self.spec.returns_logits,
-                                    self._context(batch))
-                if batch.valid is not None:
+                                    self.spec.returns_logits, ctx)
+                if valid is not None:
                     # padding samples: an out-of-range target drops them
-                    mask = torch.where(batch.valid[:, None, None], mask,
+                    mask = torch.where(valid[:, None, None], mask,
                                        num_classes + 1)
                 confusion.update_confusion(conf, pred, mask, num_classes,
                                            ignore)
+            if self.mesh is not None:
+                conf = mesh_lib.all_reduce_sum(conf, self.mesh.data_group)
             host.fold(conf)
         return host

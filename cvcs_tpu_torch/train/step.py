@@ -27,6 +27,18 @@ the validation-loss and predict steps run in eval mode and draw nothing.
 the model, cast to f32 beside the image, only when given: the trainer and
 the evaluation CLI give it to a net whose ``ModelSpec.requires_context``
 is set, as the JAX steps do.
+
+``mesh`` (a :class:`cvcs_tpu_torch.core.mesh.Mesh` whose data axis has
+more than one rank): the batch is this rank's share of the global batch
+(``mesh.shard_batch``; with ``accum = N`` its slice of each of the N
+global micro-batches, in order), and the step runs under
+``mesh.data_parallel``: BatchNorm statistics and the loss span the global
+batch, dropout draws the global batch's mask, and the gradients are
+summed over the data group before the update, so every rank makes the
+single-process update of the global batch (JAX ``step.py:84-115`` under a
+sharded ``jit``). A batch that does not split over the ranks is run whole
+on every rank (``sharded=False``), as JAX replicates it, and its
+gradients are averaged over the group so that the replicas stay equal.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ import contextlib
 
 import torch
 
+from cvcs_tpu_torch.core import mesh as mesh_lib
 from cvcs_tpu_torch.models.blocks import seed_dropout
 from cvcs_tpu_torch.train.state import TrainState
 
@@ -77,9 +90,10 @@ def forward(model, x: torch.Tensor, context=None) -> torch.Tensor:
 
 
 def train_step(state: TrainState, loss_fn, image, mask, *, accum: int = 1,
-               update_stats: bool = True, context=None) -> torch.Tensor:
+               update_stats: bool = True, context=None, mesh=None,
+               sharded: bool = True) -> torch.Tensor:
     """One optimizer update on the batch; returns the loss (a 0-d tensor
-    on the device, not synchronised)."""
+    on the device, not synchronised; under a mesh the global batch's)."""
     model = state.model
     model.train()
     x = image.to(torch.float32)
@@ -89,7 +103,8 @@ def train_step(state: TrainState, loss_fn, image, mask, *, accum: int = 1,
     opt = state.optimizer.opt
     opt.zero_grad(set_to_none=True)
     seed_dropout(model, state.dropout_seed, state.step)
-    with frozen_bn_stats(model, frozen=not update_stats):
+    with frozen_bn_stats(model, frozen=not update_stats), \
+            mesh_lib.data_parallel(mesh if sharded else None):
         if accum == 1:
             loss = loss_fn(forward(model, x, context), mask)
             loss.backward()
@@ -107,28 +122,37 @@ def train_step(state: TrainState, loss_fn, image, mask, *, accum: int = 1,
                     p.grad.div_(accum)
             loss = loss / accum
     zero_unused_grads(state)
+    if mesh is not None:
+        mesh_lib.reduce_grads(
+            [p for group in opt.param_groups for p in group["params"]
+             if p.requires_grad], mesh, average=not sharded)
     opt.step()
     state.step += 1
     return loss
 
 
 @torch.no_grad()
-def stats_step(state: TrainState, image, context=None) -> None:
+def stats_step(state: TrainState, image, context=None, mesh=None) -> None:
     """BatchNorm running-statistics refresh: one train-mode forward whose
     only effect is the statistics update (the companion of
-    ``update_stats=False``)."""
+    ``update_stats=False``); with ``mesh``, on this rank's share of the
+    batch, the statistics spanning the global one."""
     state.model.train()
     seed_dropout(state.model, 0)
-    forward(state.model, image.to(torch.float32), context)
+    with mesh_lib.data_parallel(mesh):
+        forward(state.model, image.to(torch.float32), context)
 
 
 @torch.inference_mode()
-def loss_step(state: TrainState, loss_fn, image, mask,
-              context=None) -> torch.Tensor:
-    """Validation loss: eval-mode forward, loss on the f32 logits."""
+def loss_step(state: TrainState, loss_fn, image, mask, context=None,
+              mesh=None) -> torch.Tensor:
+    """Validation loss: eval-mode forward, loss on the f32 logits; with
+    ``mesh``, on this rank's share of the batch, the loss the global
+    batch's."""
     state.model.eval()
-    return loss_fn(forward(state.model, image.to(torch.float32), context),
-                   mask)
+    with mesh_lib.data_parallel(mesh):
+        return loss_fn(forward(state.model, image.to(torch.float32),
+                               context), mask)
 
 
 @torch.inference_mode()

@@ -21,6 +21,12 @@
   Pallas kernel. ADAM1's state (moments and count) on SwinUnetTiny
   restores bit for bit, and the next update from the same gradients
   matches optax's within the same tolerance.
+* ``load_checkpoint: auto``: ``cli.train`` over a directory holding the
+  JAX package's ``checkpoint1`` (after one SGD2 step of Unetv2) beside a
+  ``checkpoint2`` with ``meta.json`` alone and a bare
+  ``*.orbax-checkpoint-tmp-*`` directory resumes at epoch 1 with the
+  bridge's weights; ``prune_checkpoints`` deletes what the JAX package's
+  prune deletes and leaves the half-written ones.
 * Async saves (after ``tests/test_async_checkpoint.py``): the round trip;
   a write held in flight is passed by ``latest_checkpoint`` and
   ``prune_checkpoints`` and lands after ``wait_for_saves``; the snapshot
@@ -432,3 +438,76 @@ def test_trainer_async_checkpoints_resume(tmp_path):
     resumed.train()
     assert ckpt_lib.latest_checkpoint(tmp_path / "ck") == (
         tmp_path / "ck" / "checkpoint3")
+
+
+# -- load_checkpoint: auto over the JAX package's checkpoints ------------------
+@pytest.fixture
+def orbax_dir(tmp_path):
+    """A checkpoint directory as the JAX train CLI leaves it: ``checkpoint1``
+    from ``save_checkpoint`` after one SGD2 step of Unetv2 (wCEL with
+    ignore_background), beside two half-written ones that must be passed
+    by: ``checkpoint2`` holding only its ``meta.json`` and Orbax's
+    temporary ``state.orbax-checkpoint-tmp-*``, and a bare
+    ``checkpoint3.orbax-checkpoint-tmp-*`` directory."""
+    jstate, lr = _jax_state("Unetv2", "SGD2", seed=2)
+    jstep = make_train_step(jlosses.build_loss(
+        "wCEL", weights=_WEIGHTS, ignore_background=True))
+    rng = np.random.default_rng(4)
+    img = rng.integers(0, 256, (2, P, P, 3)).astype(np.uint8)
+    msk = rng.integers(0, NC, (2, P, P)).astype(np.int32)
+    jstate, _ = jstep(jstate, jnp.asarray(img), jnp.asarray(msk),
+                      jnp.zeros((), jnp.uint8), lr, jax.random.key(0))
+    ck = tmp_path / "ck"
+    path = jax_ckpt.save_checkpoint(ck, 0, jstate, [2.0], [2.5], 2, "SGD2")
+    assert path.name == "checkpoint1"
+    torn = ck / "checkpoint2"
+    (torn / "state.orbax-checkpoint-tmp-1700000000").mkdir(parents=True)
+    (torn / "meta.json").write_text((path / "meta.json").read_text())
+    (ck / "checkpoint3.orbax-checkpoint-tmp-1700000001").mkdir()
+    return ck, _saved(jstate)
+
+
+def test_auto_resumes_from_the_jax_packages_checkpoint(orbax_dir, gid15_root,
+                                                       tmp_path):
+    """``cli.train`` with ``load_checkpoint: auto`` over a directory of the
+    JAX package's checkpoints resumes at the Orbax one's epoch with the
+    bridge's weights (it printed "starting fresh" and trained from random
+    weights while ``_ranked`` counted only ``state.pt``)."""
+    from cvcs_tpu_torch.cli import train as train_cli
+
+    ck, saved = orbax_dir
+    assert ckpt_lib.latest_checkpoint(ck) == ck / "checkpoint1"
+    trainer = train_cli.build_trainer(dict(
+        train=str(gid15_root), validation=str(gid15_root),
+        checkpoint_directory=str(ck), net="Unetv2", epochs=2, chunk_size=2,
+        patch_size=P, batch_size=4, loss="wCEL", opt="SGD2",
+        ignore_background=True, num_classes=NC - 1, precision="f32",
+        device="cpu", load_checkpoint="auto"))
+    assert trainer.last_epoch == 1 and trainer.state.step == 1
+    assert trainer.training_loss_values == [2.0]
+    want = jax_state_dict(trainer.state.model, saved)
+    got = trainer.state.model.state_dict()
+    assert all(torch.equal(got[k], want[k].to(got[k].dtype)) for k in want)
+
+
+def test_prune_deletes_what_the_jax_prune_deletes(orbax_dir, tmp_path):
+    """Landed Orbax checkpoints rank with the port's own by (N, preempt);
+    both prunes delete the same ones and leave the half-written ones."""
+    import shutil
+
+    ck, _ = orbax_dir
+    for name in ("checkpoint2_preempt", "checkpoint4"):
+        shutil.copytree(ck / "checkpoint1", ck / name)
+    listing = sorted(p.name for p in ck.iterdir())
+    jax_copy, port_copy = tmp_path / "jax", tmp_path / "port"
+    shutil.copytree(ck, jax_copy)
+    shutil.copytree(ck, port_copy)
+    assert ckpt_lib.latest_checkpoint(port_copy) == port_copy / "checkpoint4"
+    jax_gone = sorted(p.name for p in jax_ckpt.prune_checkpoints(jax_copy, 2))
+    port_gone = sorted(p.name for p in ckpt_lib.prune_checkpoints(port_copy,
+                                                                  2))
+    assert port_gone == jax_gone == ["checkpoint1"]
+    left = sorted(p.name for p in port_copy.iterdir())
+    assert left == sorted(p.name for p in jax_copy.iterdir())
+    assert left == [n for n in listing if n != "checkpoint1"]
+    assert "checkpoint2" in left and any("tmp" in n for n in left)

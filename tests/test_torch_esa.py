@@ -7,7 +7,8 @@ whole tiles' (2p, 3p, 3) and equal, pixel for pixel, the palette of the
 labels of the port's engine for the same weights; a list of same-shape
 rasters (the batched multi-scene pass) must give each raster its own.
 Config validation as in the JAX package's CLI tests: a missing ``image``
-raises ``KeyError``, an unknown key warns; ``mesh`` raises (not ported).
+raises ``KeyError``, an unknown key warns; a ``mesh`` over more ranks
+than the one process raises ``MeshConfig.resolve``'s ``ValueError``.
 """
 
 import numpy as np
@@ -87,5 +88,6 @@ def test_esa_config_validation(tmp_path, capsys):
     esa_cli.run(config(tmp_path, str(path), border_corection=64))
     out = capsys.readouterr().out
     assert "unknown esa config keys" in out and "border_corection" in out
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="mesh 0x2 does not cover 1 "
+                                         "devices"):
         esa_cli.run(config(tmp_path, str(path), mesh={"spatial": 2}))

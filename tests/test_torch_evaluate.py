@@ -13,9 +13,11 @@ CPU.
 * ``print_metrics`` prints the reference's two tables exactly as the JAX
   package does and returns the same dict; ``silent`` prints nothing.
 * ``plot_confusion`` and ``plot_priors`` write their files (matplotlib).
-* With no card and no ``device: cpu`` the entry point raises, as does
-  ``mesh`` (not yet ported); ``load_context: true`` evaluates, with the
-  same metrics as without (SwinUnetTiny reads no context).
+* With no card and no ``device: cpu`` the entry point raises, as does a
+  ``mesh`` over more ranks than the one process (``MeshConfig.resolve``'s
+  ``ValueError``, as JAX raises over too few devices; the data mesh itself
+  runs in ``tests/test_torch_dp.py``); ``load_context: true`` evaluates,
+  with the same metrics as without (SwinUnetTiny reads no context).
 """
 
 from pathlib import Path
@@ -129,7 +131,8 @@ def test_evaluate_refuses(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tevaluate.evaluate(cfg)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="mesh 2x1 does not cover 1 "
+                                         "devices"):
         tevaluate.evaluate(dict(cfg, device="cpu", mesh={"data": 2}))
     plain = tevaluate.evaluate(dict(cfg, device="cpu"))
     assert tevaluate.evaluate(dict(cfg, device="cpu",

@@ -32,6 +32,9 @@ MODULES = sorted(
 def test_modules_found():
     assert "cvcs_tpu_torch.ops.swin_attn" in MODULES
     assert "cvcs_tpu_torch.cli.serve" in MODULES
+    # the mesh: covered by the import and source checks below
+    assert "cvcs_tpu_torch.core.mesh" in MODULES
+    assert "cvcs_tpu_torch.parallel.halo" in MODULES
 
 
 def test_import_pulls_in_no_jax_and_no_jax_package():

@@ -12,8 +12,11 @@
   ``augmentation: fused`` write checkpoints; resuming from the epoch-2
   checkpoint continues the histories; a non-finite loss halts training;
   ``load_context`` and ``random_tps`` build (their data is held against
-  JAX in ``tests/test_torch_context.py``), ``mesh`` over two devices
-  raises, as does a checkpoint directory holding neither ``state.pt``
+  JAX in ``tests/test_torch_context.py``), ``mesh: {data: 2}`` in one
+  process raises ``MeshConfig.resolve``'s ``ValueError`` (the data mesh
+  trains in ``tests/test_torch_dp.py``) and ``mesh.spatial > 1``
+  ``NotImplementedError`` naming ROADMAP item 14d, as does a checkpoint
+  directory holding neither ``state.pt``
   nor an Orbax ``state/``; without a card and without ``device: cpu``
   it raises.
 """
@@ -215,9 +218,13 @@ def test_train_cli_halts_on_nan_and_refuses_what_it_cannot_run(
     assert built.train_loader.load_context and built.val_loader.load_context
     assert built.config.random_tps == [[300, 0.5]]
     assert built.config.async_checkpoints
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mesh 2x1 does not cover 1 "
+                                         "devices"):
         train_cli.build_trainer(_config(dataset, tmp_path,
                                         mesh={"data": 2}))
+    with pytest.raises(NotImplementedError, match="item 14d"):
+        train_cli.build_trainer(_config(dataset, tmp_path,
+                                        mesh={"data": 1, "spatial": 2}))
     with pytest.raises(ValueError, match="remat: true is not supported"):
         train_cli.build_trainer(_config(dataset, tmp_path, remat=True))
     torn = tmp_path / "ck" / "checkpoint9" / "state"

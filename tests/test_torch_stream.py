@@ -204,5 +204,8 @@ def test_predict_cli_mesh_still_raises(gid15_root, tmp_path):
     config = dict(dataset=str(gid15_root), net="SwinUnetTiny", patch_size=P,
                   device="cpu", output=str(tmp_path),
                   mesh={"spatial": 2}, fullconv_bands=2)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # one process cannot hold a mesh of two ranks (the mesh's fullconv
+    # strips run in tests/test_torch_mesh.py and tests/test_torch_halo.py)
+    with pytest.raises(ValueError, match="mesh 0x2 does not cover 1 "
+                                         "devices"):
         predict_cli.predict(config)
