@@ -18,8 +18,10 @@ JAX package.
 share of each batch, and rank 0 writes the logs and checkpoints. Each
 rank runs the fused window-attention kernels on its own share (the JAX
 package's ``CVCS_TPU_FUSED_ATTN_TRAIN=0`` under a mesh is a knob of the
-TPU partitioner and has no counterpart). ``mesh.spatial > 1``
-(spatially partitioned training) raises ``NotImplementedError`` naming
+TPU partitioner and has no counterpart). ``mesh: {data: D, spatial: S}``
+with S > 1 trains spatially partitioned: each rank's share is also cut
+to its strip of patch rows (``train/loop.py``) for the U-Nets, SwinUnet
+and SegFormer; the DeepLab family raises ``NotImplementedError`` naming
 its ROADMAP item.
 """
 
@@ -43,15 +45,20 @@ from cvcs_tpu_torch.utils.tables import get_table_cls
 
 # train config keys of paths the port does not run yet -> the ROADMAP item
 UNPORTED_TRAIN_KEYS = {
-    "mesh": "spatially partitioned training (mesh spatial > 1) is not yet "
-            "ported (ROADMAP.md Queue 1 item 14d)",
+    "mesh": "spatially partitioned training (mesh spatial > 1) of the "
+            "DeepLab family is not yet ported (ROADMAP.md Queue 1, slice 13)",
 }
+# the nets spatially partitioned training does not run yet
+NO_SPATIAL_NETS = ("Resnet101", "Resnet50", "MobileNet", "MobileNetGoogle",
+                   "MobileNetResnet18")
 
 
 def reject_unported_train_keys(config: dict) -> None:
-    if int((config.get("mesh") or {}).get("spatial", 1)) > 1:
+    if (int((config.get("mesh") or {}).get("spatial", 1)) > 1
+            and config.get("net") in NO_SPATIAL_NETS):
         raise NotImplementedError(
-            f"config key 'mesh': {UNPORTED_TRAIN_KEYS['mesh']}")
+            f"config key 'mesh' with net {config['net']!r}: "
+            f"{UNPORTED_TRAIN_KEYS['mesh']}")
 
 
 def build_trainer(config: dict) -> Trainer:

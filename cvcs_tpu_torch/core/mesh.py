@@ -33,6 +33,17 @@ While :func:`data_parallel` is active, the train-mode BatchNorm statistics
 ``ops/fused_ce.py``) and the seeded dropout reduce or draw over the active
 mesh's data group, so that a step on each rank's share equals the step on
 the global batch.
+
+While :func:`spatial_parallel` is active, each rank's share is also cut
+to its strip of rows (:func:`shard_rows`, JAX's ``_shard`` putting patch
+rows over the ``spatial`` axis), and the maps of the forward are row
+strips: the convolutions, resizes and window attentions exchange halo
+rows with their spatial neighbours (``parallel/halo.py``), and the sums
+above span the whole (data x spatial) world. A map whose rows do not
+split evenly over the spatial group is gathered whole on every rank
+(``halo.gather_rows``); the code that computes on it runs inside
+:func:`whole_rows`, where the sums span the data group only (every
+spatial rank holds the same whole map) and no halo is taken.
 """
 
 from __future__ import annotations
@@ -85,6 +96,7 @@ class Mesh:
     data_group: Any
     spatial_group: Any
     device: torch.device
+    world_group: Any = None
 
     @property
     def size(self) -> int:
@@ -141,7 +153,8 @@ def create_mesh(config: MeshConfig | None = None, device=None) -> Mesh:
             if i == d:
                 spatial_group = g
     return Mesh({DATA_AXIS: data, SPATIAL_AXIS: spatial}, rank, d, s,
-                data_ranks, spatial_ranks, data_group, spatial_group, dev)
+                data_ranks, spatial_ranks, data_group, spatial_group, dev,
+                dist.group.WORLD if dist.is_initialized() else None)
 
 
 def local_mesh(device=None) -> Mesh:
@@ -283,63 +296,175 @@ def shard_batch(batch, mesh: Mesh, micro: int = 1):
     return batch[idx.to(batch.device)]
 
 
-_ACTIVE: Mesh | None = None
+def shard_rows(batch, mesh: Mesh):
+    """This rank's strip of rows of a batch (a tensor, or a tuple, list or
+    dict of tensors and Nones): rows [s h, (s + 1) h) of the second axis
+    of every leaf with at least three axes (an NHWC image, a (B, H, W)
+    mask), h = H / spatial; lower-rank leaves (valid flags) stay whole.
+    Call it only when :func:`rows_divide` holds for the batch's rows."""
+    if isinstance(batch, dict):
+        return {k: shard_rows(v, mesh) for k, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(shard_rows(v, mesh) for v in batch)
+    if batch is None or batch.dim() < 3:
+        return batch
+    n = mesh.shape[SPATIAL_AXIS]
+    h = batch.shape[1] // n
+    return batch[:, mesh.spatial_index * h:(mesh.spatial_index + 1) * h]
 
 
-def active_data_mesh() -> Mesh | None:
-    """The mesh whose data group the current step reduces over, or None."""
-    return _ACTIVE
+def rows_divide(rows: int, mesh: Mesh | None) -> bool:
+    """Whether ``rows`` patch rows split over the mesh's spatial axis (of
+    more than one rank): JAX's ``_shard`` shards them only then."""
+    return (mesh is not None and mesh.shape[SPATIAL_AXIS] > 1
+            and rows % mesh.shape[SPATIAL_AXIS] == 0)
+
+
+_ACTIVE: Mesh | None = None      # the mesh whose sums span the global batch
+_STRIPS = False                  # the maps are row strips over its spatial axis
+_WHOLE = False                   # ... but the code now runs on whole maps
+
+
+def strip_mesh() -> Mesh | None:
+    """The mesh whose spatial group holds the current maps' row strips:
+    set under :func:`spatial_parallel`, None inside :func:`whole_rows` and
+    outside."""
+    return _ACTIVE if _STRIPS and not _WHOLE else None
 
 
 @contextlib.contextmanager
+def _active(mesh: Mesh | None, strips: bool):
+    global _ACTIVE, _STRIPS, _WHOLE
+    prev = _ACTIVE, _STRIPS, _WHOLE
+    _ACTIVE, _STRIPS, _WHOLE = mesh, strips, False
+    try:
+        yield mesh
+    finally:
+        _ACTIVE, _STRIPS, _WHOLE = prev
+
+
 def data_parallel(mesh: Mesh | None):
     """Within the block, BatchNorm statistics, losses and the seeded
     dropout work on this rank's share of a global batch split over the
     mesh's data group. A mesh whose data axis has one rank is no data
     parallelism."""
-    global _ACTIVE
-    prev = _ACTIVE
-    _ACTIVE = mesh if mesh is not None and mesh.shape[DATA_AXIS] > 1 else None
+    on = mesh is not None and mesh.shape[DATA_AXIS] > 1
+    return _active(mesh if on else None, False)
+
+
+def spatial_parallel(mesh: Mesh | None):
+    """:func:`data_parallel`, and the maps are row strips over the mesh's
+    spatial group: the rank's share is its data slice cut to its strip of
+    rows (:func:`shard_rows`), the models' convolutions, resizes and
+    window attentions take halo rows from the neighbours, and the sums
+    span every rank of the mesh. A mesh whose spatial axis has one rank
+    is :func:`data_parallel`."""
+    if mesh is None or mesh.shape[SPATIAL_AXIS] == 1:
+        return data_parallel(mesh)
+    return _active(mesh, True)
+
+
+@contextlib.contextmanager
+def whole_rows(whole: bool = True):
+    """Within the block (when ``whole``), the maps are whole on every
+    spatial rank: no halo is taken, and the sums span the data group
+    only. Model code enters it where it has gathered a map whose rows do
+    not split over the spatial group."""
+    global _WHOLE
+    prev = _WHOLE
+    _WHOLE = _WHOLE or whole
     try:
-        yield _ACTIVE
+        yield
     finally:
-        _ACTIVE = prev
+        _WHOLE = prev
+
+
+def mesh_state() -> tuple:
+    """The parallel contexts as they stand, for :func:`restore_state` in
+    code that runs again outside them (a rematerialised block)."""
+    return _ACTIVE, _STRIPS, _WHOLE
+
+
+@contextlib.contextmanager
+def restore_state(state: tuple):
+    global _ACTIVE, _STRIPS, _WHOLE
+    prev = _ACTIVE, _STRIPS, _WHOLE
+    _ACTIVE, _STRIPS, _WHOLE = state
+    try:
+        yield
+    finally:
+        _ACTIVE, _STRIPS, _WHOLE = prev
+
+
+def _sum_group():
+    """(group, ranks) the current sums span: the world under row strips,
+    else the data group; (None, 1) when there is nothing to reduce."""
+    mesh = _ACTIVE
+    if mesh is None:
+        return None, 1
+    if _STRIPS and not _WHOLE:
+        return mesh.world_group, mesh.size
+    if mesh.shape[DATA_AXIS] == 1:
+        return None, 1
+    return mesh.data_group, mesh.shape[DATA_AXIS]
 
 
 def dp_sum(t: torch.Tensor, own_grad: bool = False) -> torch.Tensor:
-    """``t`` summed over the active data group, differentiably (``t``
-    itself outside :func:`data_parallel`). The backward sums the
-    upstream gradients over the group (BatchNorm's statistics feed every
-    rank's share of the total), or with ``own_grad`` passes them to this
-    rank's term alone (a loss that every rank computes over the global
-    batch)."""
-    mesh = _ACTIVE
-    if mesh is None:
+    """``t`` summed over the ranks that share the global batch,
+    differentiably (``t`` itself outside :func:`data_parallel` and
+    :func:`spatial_parallel`): the data group, or under row strips every
+    rank. The backward sums the upstream gradients over the group
+    (BatchNorm's statistics feed every rank's share of the total), or
+    with ``own_grad`` passes them to this rank's term alone (a loss that
+    every rank computes over the global batch)."""
+    group, n = _sum_group()
+    if n == 1:
         return t
     fn = _AllReduceSumOwnGrad if own_grad else _AllReduceSum
-    return fn.apply(t, mesh.data_group)
+    return fn.apply(t, group)
+
+
+def sum_group():
+    """The process group of :func:`dp_sum` (None: nothing to reduce)."""
+    return _sum_group()[0]
 
 
 def dp_size() -> int:
-    return 1 if _ACTIVE is None else _ACTIVE.shape[DATA_AXIS]
+    """How many equal shares the global batch's sums span (the data
+    group's ranks, times the spatial ranks under row strips)."""
+    return _sum_group()[1]
 
 
 def dp_index() -> int:
-    return 0 if _ACTIVE is None else _ACTIVE.data_index
+    """This rank's data coordinate under :func:`data_parallel` or
+    :func:`spatial_parallel` (0 outside)."""
+    mesh = _ACTIVE
+    return 0 if mesh is None or mesh.shape[DATA_AXIS] == 1 else mesh.data_index
 
 
-def reduce_grads(params, mesh: Mesh, average: bool = False) -> None:
+def data_ranks() -> int:
+    """The data group's ranks under either context (1 outside)."""
+    return 1 if _ACTIVE is None else _ACTIVE.shape[DATA_AXIS]
+
+
+def reduce_grads(params, mesh: Mesh, average: bool = False,
+                 spatial: bool = False) -> None:
     """Sum (or average) the gradients of ``params`` over the mesh's data
-    group in one flat all-reduce. Every parameter must hold a gradient
-    (``train.step.zero_unused_grads`` runs first), so the flat layout is
-    the same on every rank."""
-    if mesh is None or mesh.shape[DATA_AXIS] == 1:
+    group in one flat all-reduce, or with ``spatial`` (a step on row
+    strips) over every rank of the mesh. Every parameter must hold a
+    gradient (``train.step.zero_unused_grads`` runs first), so the flat
+    layout is the same on every rank."""
+    if mesh is None:
+        return
+    group, n = ((mesh.world_group, mesh.size) if spatial
+                else (mesh.data_group, mesh.shape[DATA_AXIS]))
+    if n == 1:
         return
     grads = [p.grad for p in params]
     flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
-    dist.all_reduce(flat, group=mesh.data_group)
+    dist.all_reduce(flat, group=group)
     if average:
-        flat /= mesh.shape[DATA_AXIS]
+        flat /= n
     off = 0
     for g in grads:
         n = g.numel()

@@ -12,10 +12,29 @@ holders, so state-dict names are torch's; the arithmetic is written out
 here to follow the JAX package: activations stay NHWC and in the compute
 dtype of their input, weights are cast to it at use, and normalisations
 take f32 statistics and cast back.
+
+On row strips (``core/mesh.py`` ``spatial_parallel``) the same helpers
+compute each rank's rows of the single-device result. A convolution
+takes a halo of the rows its window reaches beyond the strip, with the
+``SAME`` pads of the *global* map (so only the first rank pads the top
+and only the last the bottom); a strided one needs each strip to start
+on a stride multiple, and otherwise, like a halo wider than a strip,
+gathers the map, convolves it whole and keeps the rank's rows. The 2x2/2
+max pool and transposed conv are local on even strips; a wider
+transposed conv takes a halo too. BatchNorm sums over every rank, the
+seeded dropout keeps the rank's rows of the global mask, and
+``center_crop`` crops in global rows.
+
+Under ``parallel/tp.py`` ``tensor_parallel`` a holder that
+``shard_params`` cut to its slice of output channels computes that
+slice; a consumer that needs every input channel gathers them first, and
+BatchNorm runs on the slice (``tp.conv_input``, ``tp.full_channels``,
+``tp.channel_slice``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -26,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from cvcs_tpu_torch.core import mesh as mesh_lib
 from cvcs_tpu_torch.ops.resize import upsample_bilinear
+from cvcs_tpu_torch.parallel import halo, tp
 
 
 def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
@@ -39,32 +59,104 @@ def conv_nhwc(x, conv: nn.Conv2d, padding="same_flax") -> torch.Tensor:
     """``conv`` (its stride, dilation and groups) on an NHWC tensor in
     x.dtype. ``padding="same_flax"`` pads like flax's default ``SAME``
     (zero for a stride that divides the map); an int pads
-    symmetrically."""
-    dt = x.dtype
-    y = x.permute(0, 3, 1, 2)          # NCHW view, channels-last strides
+    symmetrically. On row strips, each rank's rows of the whole map's
+    result (:func:`_strip_conv`)."""
+    x, weight, groups = tp.conv_input(x, conv)
+    sp = mesh_lib.strip_mesh()
+    if sp is not None:
+        return _strip_conv(x, conv, padding, sp, weight, groups)
+    return _conv(x, conv, padding, weight, groups)
+
+
+def _conv(x, conv, padding, weight, groups) -> torch.Tensor:
+    """The conv on a whole map."""
     if padding == "same_flax":
         (kh, kw), (dh, dw) = conv.kernel_size, conv.dilation
         sh, sw = conv.stride
-        top, bottom = _same_pads(y.shape[2], (kh - 1) * dh + 1, sh)
-        left, right = _same_pads(y.shape[3], (kw - 1) * dw + 1, sw)
-        if top or bottom or left or right:
-            y = F.pad(y, (left, right, top, bottom))
-        padding = 0
+        top, bottom = _same_pads(x.shape[1], (kh - 1) * dh + 1, sh)
+        left, right = _same_pads(x.shape[2], (kw - 1) * dw + 1, sw)
+        return _conv2d(x, conv, weight, groups, (left, right, top, bottom))
+    return _conv2d(x, conv, weight, groups, padding=padding)
+
+
+def _conv2d(x, conv, weight, groups, pads=(0, 0, 0, 0),
+            padding=0) -> torch.Tensor:
+    """``F.conv2d`` in x.dtype on the NCHW view of NHWC ``x`` (channels-last
+    strides), zero-padded by ``pads`` (left, right, top, bottom) first and
+    by ``padding`` in the conv."""
+    dt = x.dtype
+    y = x.permute(0, 3, 1, 2)
+    if any(pads):
+        y = F.pad(y, pads)
     bias = None if conv.bias is None else conv.bias.to(dt)
-    y = F.conv2d(y, conv.weight.to(dt), bias, conv.stride, padding,
-                 conv.dilation, conv.groups)
+    y = F.conv2d(y, weight.to(dt), bias, conv.stride, padding,
+                 conv.dilation, groups)
     return y.permute(0, 2, 3, 1)
+
+
+def _strip_conv(x, conv, padding, sp, weight, groups) -> torch.Tensor:
+    """The conv on this rank's strip of rows: [halo above | strip | halo
+    below] convolved with no row padding, the halos taken from the
+    neighbours (zeros past the global map's edges, which are its pads).
+    Each strip's outputs start at its first row / stride, so the strip
+    must hold a whole number of strides of outputs; otherwise, or when a
+    halo is wider than a strip, the map is gathered, convolved whole and
+    split."""
+    n = sp.shape[mesh_lib.SPATIAL_AXIS]
+    h = x.shape[1]
+    rows = h * n
+    kh, sh, dh = conv.kernel_size[0], conv.stride[0], conv.dilation[0]
+    k = (kh - 1) * dh + 1
+    if padding == "same_flax":
+        top, bottom = _same_pads(rows, k, sh)
+        left, right = _same_pads(x.shape[2], (conv.kernel_size[1] - 1)
+                                 * conv.dilation[1] + 1, conv.stride[1])
+    else:
+        top = bottom = left = right = int(padding)
+    out = (rows + top + bottom - k) // sh + 1
+    below = max(k - sh - top, 0)
+    if out % n or out // n * sh != h or not halo.halo_fits(
+            [h] * n, [top] * n, [below] * n):
+        what = f"conv {tuple(conv.kernel_size)}/{sh} on {rows} rows"
+        whole = halo.gather_rows(x, sp, what, "strips not aligned to the "
+                                 "stride or halo wider than a strip")
+        with mesh_lib.whole_rows():
+            y = _conv(whole, conv, padding, weight, groups)
+        if y.shape[1] % n:
+            raise ValueError(f"{what}: {y.shape[1]} output rows do not "
+                             f"split over {n} ranks")
+        return halo.split_rows(y, sp)
+    ext = halo.row_halo(x, sp, top, below)
+    if k - sh - top < 0:               # rows no output of the strip reads
+        ext = ext[:, :ext.shape[1] + (k - sh - top)]
+    return _conv2d(ext, conv, weight, groups, (left, right, 0, 0))
 
 
 def conv_transpose_nhwc(x, conv: nn.ConvTranspose2d,
                         padding: int = 0) -> torch.Tensor:
     """Transposed conv (flax ``nn.ConvTranspose`` with the exporter's
     flipped kernel) on an NHWC tensor in x.dtype. ``padding`` is torch's:
-    flax's explicit padding k - 1 - p on each side."""
+    flax's explicit padding k - 1 - p on each side. On row strips (where
+    the output has stride x the input's rows), the rows of the inputs
+    that reach the strip's outputs come as a halo and the output rows of
+    the strip are kept."""
+    x, weight, _ = tp.conv_input(x, conv)
     dt = x.dtype
     bias = None if conv.bias is None else conv.bias.to(dt)
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), conv.weight.to(dt), bias,
+    sp = mesh_lib.strip_mesh()
+    k, st = conv.kernel_size[0], conv.stride[0]
+    above = below = 0
+    if sp is not None:
+        if k - 2 * padding != st:
+            raise ValueError(f"transposed conv {k}/{st} padding {padding} "
+                             "does not scale the rows by its stride")
+        above, below = (k - 1 - padding) // st, (padding - 1) // st + 1
+        x = halo.row_halo(x, sp, above, below)
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), weight.to(dt), bias,
                            conv.stride, padding)
+    if above or below:
+        h = x.shape[1] - above - below
+        y = y[:, :, st * above:st * (above + h)]
     return y.permute(0, 2, 3, 1)
 
 
@@ -76,6 +168,7 @@ def sqrt_in(n: int, dtype: torch.dtype) -> float:
 
 
 def linear(x, layer: nn.Linear) -> torch.Tensor:
+    x = tp.full_channels(x, layer.weight.shape[1])
     dt = x.dtype
     bias = None if layer.bias is None else layer.bias.to(dt)
     return F.linear(x, layer.weight.to(dt), bias)
@@ -95,7 +188,9 @@ def _affine(xf, mean, var, scale, bias, eps, dt):
 
 
 def layer_norm(x, norm: nn.LayerNorm) -> torch.Tensor:
-    """flax ``nn.LayerNorm``: f32 fast-variance stats over the last axis."""
+    """flax ``nn.LayerNorm``: f32 fast-variance stats over the last axis
+    (every channel: a channel-sharded input is gathered first)."""
+    x = tp.full_channels(x, norm.normalized_shape[0])
     xf = at_least_f32(x)
     mu = xf.mean(-1, keepdim=True)
     var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
@@ -103,9 +198,11 @@ def layer_norm(x, norm: nn.LayerNorm) -> torch.Tensor:
 
 
 def batch_norm_eval(x, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """BatchNorm on running statistics over the last (channel) axis."""
-    return _affine(at_least_f32(x), bn.running_mean, bn.running_var,
-                   bn.weight, bn.bias, bn.eps, x.dtype)
+    """BatchNorm on running statistics over the last (channel) axis (the
+    rank's channels of a channel-sharded input)."""
+    mean, var, w, b = tp.channel_slice(
+        x, (bn.running_mean, bn.running_var, bn.weight, bn.bias))
+    return _affine(at_least_f32(x), mean, var, w, b, bn.eps, x.dtype)
 
 
 def batch_stats(x):
@@ -118,11 +215,12 @@ def batch_stats(x):
     per-channel sums of x and x^2 and the count are summed over the data
     group, differentiably (the backward sums each rank's upstream
     gradient of the statistics, so every rank's share sees the global
-    ones), and the count is the global count."""
+    ones), and the count is the global count. On row strips the sums
+    span every rank of the mesh; in a whole region the data group."""
     xf = at_least_f32(x)
     axes = tuple(range(x.dim() - 1))
     n = xf.numel() // xf.shape[-1]
-    if mesh_lib.active_data_mesh() is None:
+    if mesh_lib.dp_size() == 1:
         mean = xf.mean(axes)
         var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
         return xf, mean, var, n
@@ -181,9 +279,10 @@ class SeededDropout(nn.Module):
     input's device, never the global RNG: :func:`seed_dropout` seeds it
     from a (seed, step) pair before each train step. Under
     :func:`cvcs_tpu_torch.core.mesh.data_parallel` each rank draws the
-    global batch's mask and keeps its own rows. ``keep_mask`` (a
-    boolean tensor of the input's shape), when set, is used instead of a
-    draw, so tests can feed both frameworks one mask."""
+    global batch's mask and keeps its own samples (and on row strips its
+    rows). ``keep_mask`` (a boolean tensor of the global batch's shape),
+    when set, is used instead of a draw, so tests can feed both
+    frameworks one mask."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -199,8 +298,16 @@ class SeededDropout(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
+        # under data parallelism: the global batch's mask, this rank's
+        # samples of it (and on row strips its rows), so every rank draws
+        # what one process draws for the whole batch
+        n, i = mesh_lib.data_ranks(), mesh_lib.dp_index()
+        sp = mesh_lib.strip_mesh()
+        r, j = ((1, 0) if sp is None else
+                (sp.shape[mesh_lib.SPATIAL_AXIS], sp.spatial_index))
+        b, h = x.shape[:2]
         if self.keep_mask is not None:
-            mask = self.keep_mask.to(x.device)
+            full = self.keep_mask.to(x.device)
         else:
             if self._seed is None:
                 raise RuntimeError("dropout drawn before seed_dropout seeded "
@@ -208,14 +315,9 @@ class SeededDropout(nn.Module):
             if self._gen is None or self._gen.device != x.device:
                 self._gen = torch.Generator(device=x.device)
                 self._gen.manual_seed(self._seed)
-            # under data parallelism: the global batch's mask, this
-            # rank's rows of it, so every rank draws what one process
-            # draws for the whole batch
-            n, i = mesh_lib.dp_size(), mesh_lib.dp_index()
-            b = x.shape[0]
-            mask = torch.rand((b * n,) + tuple(x.shape[1:]),
-                              generator=self._gen,
-                              device=x.device)[i * b:(i + 1) * b] < keep
+            full = torch.rand((b * n, h * r) + tuple(x.shape[2:]),
+                              generator=self._gen, device=x.device) < keep
+        mask = full[i * b:(i + 1) * b, j * h:(j + 1) * h]
         return torch.where(mask, x / x.new_tensor(keep), x.new_zeros(()))
 
 
@@ -242,7 +344,13 @@ def max_pool_nhwc(x: torch.Tensor, k: int = 2, stride: int | None = None,
     ``padding`` on every side filled with -inf (the default: 2x2, stride
     2, VALID). ``ceil_mode`` pads the bottom and right edges with -inf
     until the last window fits, as torch's ``MaxPool2d(ceil_mode=True)``
-    and the JAX GoogLeNet's ``_ceil_maxpool`` do."""
+    and the JAX GoogLeNet's ``_ceil_maxpool`` do. On row strips only
+    the local case runs: k = stride, no padding, strips of whole
+    windows."""
+    if mesh_lib.strip_mesh() is not None and (
+            stride not in (None, k) or padding or ceil_mode or x.shape[1] % k):
+        raise ValueError(f"a {k}x{k} max pool on strips of {x.shape[1]} "
+                         "rows is not local: gather the map first")
     y = F.max_pool2d(x.permute(0, 3, 1, 2), k, stride or k, padding,
                      ceil_mode=ceil_mode)
     return y.permute(0, 2, 3, 1)
@@ -305,8 +413,13 @@ class ConvBNAct(nn.Module):
             y = torch.relu(batch_norm_eval(conv_nhwc(x, conv, padding=1), bn))
         else:
             if self.remat and torch.is_grad_enabled():
-                y, mean, var, n = checkpoint(self._train_block, x,
-                                             use_reentrant=False)
+                # the recomputation runs in the backward, outside the
+                # step's parallel contexts: it re-enters the forward's
+                state = mesh_lib.mesh_state()
+                y, mean, var, n = checkpoint(
+                    self._train_block, x, use_reentrant=False,
+                    context_fn=lambda: (contextlib.nullcontext(),
+                                        mesh_lib.restore_state(state)))
             else:
                 y, mean, var, n = self._train_block(x)
             update_running_stats(bn, mean.detach(), var.detach(), n)
@@ -330,8 +443,19 @@ class UpscaleBlock(nn.Module):
 
 def center_crop(x: torch.Tensor, size) -> torch.Tensor:
     """Center-crop the spatial dims of an NHWC tensor to ``size``, an int
-    (square) or an ``(out_h, out_w)`` pair (torchvision's rule)."""
+    (square) or an ``(out_h, out_w)`` pair (torchvision's rule). On row
+    strips ``size`` is the strip's: rows equal to the strip's are the
+    identity, others are cropped from the gathered map in global rows and
+    split again."""
     out_h, out_w = (size, size) if isinstance(size, int) else size
+    sp = mesh_lib.strip_mesh()
+    if sp is not None and out_h != x.shape[1]:
+        n = sp.shape[mesh_lib.SPATIAL_AXIS]
+        whole = halo.gather_rows(x, sp, f"center crop of {x.shape[1] * n} "
+                                 "rows", "a crop in global rows")
+        with mesh_lib.whole_rows():
+            y = center_crop(whole, (out_h * n, out_w))
+        return halo.split_rows(y, sp)
     top = (x.shape[1] - out_h) // 2
     left = (x.shape[2] - out_w) // 2
     return x[:, top:top + out_h, left:left + out_w, :]

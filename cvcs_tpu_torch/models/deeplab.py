@@ -41,6 +41,7 @@ from cvcs_tpu_torch.models.resnet import (RESNET18, ResNet,
                                           resnet50_backbone,
                                           resnet101_backbone)
 from cvcs_tpu_torch.ops.resize import resize_bilinear
+from cvcs_tpu_torch.parallel import tp
 
 
 def _conv_bn_relu(x, conv: nn.Conv2d, bn: nn.BatchNorm2d) -> torch.Tensor:
@@ -52,6 +53,7 @@ def phase_conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     """A 3x3 conv at dilation r and padding r on NHWC ``x``, computed as
     a dense 3x3 conv over the r x r phase maps of ``x`` zero-padded to a
     multiple of r (space to batch): the same taps and sums."""
+    x = tp.full_channels(x, conv.weight.shape[1])
     r = conv.dilation[0]
     b, h, w, c = x.shape
     hp, wp = -(-h // r) * r, -(-w // r) * r

@@ -11,6 +11,11 @@ names are torchvision's (``conv1``, ``bn1``, ``layer1.0.conv1``,
 ``layer1.0.downsample.0``, ...), the names
 ``cvcs_tpu.utils.torch_export.export_deeplab`` writes under
 ``backbone.``.
+
+The TP hook (JAX ``resnet.py:142-144``): under ``parallel/tp.py``
+``tensor_parallel`` the last stage's output (2048 channels for the
+bottleneck trunks) is held channel-sharded. The bottleneck's sums add
+two maps of one width, so both are sharded or both whole.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 from torch import nn
 
 from cvcs_tpu_torch.models.blocks import batch_norm, conv_nhwc, max_pool_nhwc
+from cvcs_tpu_torch.parallel import tp
 
 
 def _conv_bn(x, conv: nn.Conv2d, bn: nn.BatchNorm2d) -> torch.Tensor:
@@ -118,6 +124,8 @@ class ResNet(nn.Module):
         feats = {}
         for stage in range(self.n_stages):
             x = getattr(self, f"layer{stage + 1}")(x)
+            if stage == self.n_stages - 1:
+                x = tp.constrain(x, self.out_channels)
             feats[f"stage{stage + 1}"] = x
         feats["aux"] = feats["stage3"]
         feats["out"] = x

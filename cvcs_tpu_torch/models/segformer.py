@@ -25,6 +25,24 @@ State-dict names are Hugging Face's ``SegformerForSemanticSegmentation``
 plus the reference's ``seq`` tail, the names
 ``cvcs_tpu.utils.torch_export.export_segformer`` writes, so its output
 loads with ``strict=True``.
+
+On row strips (``core/mesh.py`` ``spatial_parallel``) the overlapping
+patch embeddings, Mix-FFN's depthwise 3x3 and the tail take halos
+(``models/blocks.py``), and the efficient attention keeps its queries on
+the rank's tokens while it gathers the reduced K/V tokens of the whole
+map (``halo.gather_rows``, differentiable): the ``sr`` conv runs on the
+strip when the strip's rows are a multiple of ``sr``, and at ``sr`` 1
+the tokens themselves are gathered. A stage whose strips cannot be
+embedded locally (an odd strip before a stride-2 embedding) gathers its
+input and runs whole (``whole_rows``); the head resizes each stage to
+stage 1's rows following ``ops/resize.py`` (a whole stage resized whole,
+then split) and its dropout keeps the rank's rows of the global mask.
+
+The TP hook (JAX ``segformer.py:181-183``): under ``parallel/tp.py``
+``tensor_parallel`` stage 4 is held channel-sharded; the sharded Q/K/V
+projections hold whole heads, so the attention runs on the rank's heads,
+and the residual sums and the head's concatenation gather the sharded
+maps.
 """
 
 from __future__ import annotations
@@ -36,10 +54,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cvcs_tpu_torch.core import mesh as mesh_lib
 from cvcs_tpu_torch.models.blocks import (SeededDropout, batch_norm,
                                           conv_nhwc, conv_transpose_nhwc,
                                           layer_norm, linear, sqrt_in)
 from cvcs_tpu_torch.ops.resize import resize_bilinear
+from cvcs_tpu_torch.parallel import halo, tp
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -76,24 +96,42 @@ class _SelfAttention(nn.Module):
             self.sr = nn.Conv2d(dim, dim, sr_ratio, stride=sr_ratio)
             self.layer_norm = nn.LayerNorm(dim, eps=LN_EPS)
 
+    def _kv(self, x: torch.Tensor, hw) -> torch.Tensor:
+        """The K/V tokens of the whole map: on row strips, gathered."""
+        b, _, c = x.shape
+        sp = mesh_lib.strip_mesh()
+        xm = x.reshape(b, hw[0], hw[1], c)
+        sr = self.sr_ratio
+        if sp is not None and sr > 1 and hw[0] % sr:
+            xm = halo.gather_rows(xm, sp, f"segformer K/V reduction (sr {sr})"
+                                  f" on {hw[0] * sp.shape['spatial']} rows",
+                                  "strips not a multiple of sr")
+            sp = None
+        with mesh_lib.whole_rows(sp is None):
+            if sr > 1:
+                xm = conv_nhwc(xm, self.sr, padding=0)
+                xm = layer_norm(xm, self.layer_norm)
+        if sp is not None:
+            xm = halo.gather_rows(xm, sp, f"segformer K/V (sr {sr}) of "
+                                  f"{hw[0] * sp.shape['spatial']} rows",
+                                  "K/V span the whole map (by design)")
+        return xm.reshape(b, -1, c)
+
     def forward(self, x: torch.Tensor, hw) -> torch.Tensor:
         b, n, c = x.shape
         dt = x.dtype
         q = linear(x, self.query)
-        if self.sr_ratio > 1:
-            kv = conv_nhwc(x.reshape(b, hw[0], hw[1], c), self.sr, padding=0)
-            kv = layer_norm(kv.reshape(b, -1, c), self.layer_norm)
-        else:
-            kv = x
+        kv = self._kv(x, hw)
         hd = c // self.heads
-        q = q.reshape(b, n, self.heads, hd).transpose(1, 2)
-        k = linear(kv, self.key).reshape(b, -1, self.heads, hd).transpose(1, 2)
-        v = linear(kv, self.value).reshape(b, -1, self.heads,
-                                           hd).transpose(1, 2)
+        # -1 heads: under tensor parallelism the rank's heads
+        q = q.reshape(b, n, -1, hd).transpose(1, 2)
+        m = kv.shape[1]
+        k = linear(kv, self.key).reshape(b, m, -1, hd).transpose(1, 2)
+        v = linear(kv, self.value).reshape(b, m, -1, hd).transpose(1, 2)
         scores = torch.matmul(q, k.transpose(-1, -2)) / sqrt_in(hd, dt)
         attn = torch.softmax(scores.float(), dim=-1).to(dt)
         out = torch.matmul(attn, v)
-        return out.transpose(1, 2).reshape(b, n, c)
+        return out.transpose(1, 2).reshape(b, n, -1)
 
 
 class _Attention(nn.Module):
@@ -139,8 +177,11 @@ class MiTBlock(nn.Module):
         self.mlp = _MixFFN(dim, dim * mlp_ratio)
 
     def forward(self, x: torch.Tensor, hw) -> torch.Tensor:
-        x = x + self.attention(layer_norm(x, self.layer_norm_1), hw)
-        return x + self.mlp(layer_norm(x, self.layer_norm_2), hw)
+        c = x.shape[-1]
+        x = x + tp.full_channels(
+            self.attention(layer_norm(x, self.layer_norm_1), hw), c)
+        return x + tp.full_channels(
+            self.mlp(layer_norm(x, self.layer_norm_2), hw), c)
 
 
 class MiTEncoder(nn.Module):
@@ -165,17 +206,33 @@ class MiTEncoder(nn.Module):
             self.layer_norm.append(nn.LayerNorm(width, eps=LN_EPS))
             cin = width
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                wholes: list | None = None) -> list[torch.Tensor]:
+        """Each stage's NHWC map; ``wholes``, when given, receives for each
+        whether its map is whole on every rank (False off row strips, and
+        for a stage held in strips)."""
+        sp = mesh_lib.strip_mesh()
+        whole = False
         feats = []
-        for embed, blocks, norm in zip(self.patch_embeddings, self.block,
-                                       self.layer_norm):
-            x = conv_nhwc(x, embed.proj, padding=embed.proj.padding[0])
-            b, h, w, c = x.shape
-            tokens = layer_norm(x.reshape(b, h * w, c), embed.layer_norm)
-            for blk in blocks:
-                tokens = blk(tokens, (h, w))
-            x = layer_norm(tokens, norm).reshape(b, h, w, c)
+        for s, (embed, blocks, norm) in enumerate(zip(
+                self.patch_embeddings, self.block, self.layer_norm)):
+            stride = embed.proj.stride[0]
+            if sp is not None and not whole and x.shape[1] % stride:
+                x = halo.gather_rows(x, sp, f"segformer stage {s + 1} "
+                                     "patch embedding", "odd strips")
+                whole = True
+            with mesh_lib.whole_rows(whole):
+                x = conv_nhwc(x, embed.proj, padding=embed.proj.padding[0])
+                b, h, w, _ = x.shape
+                tokens = layer_norm(x.reshape(b, h * w, -1), embed.layer_norm)
+                for blk in blocks:
+                    tokens = blk(tokens, (h, w))
+                x = layer_norm(tokens, norm).reshape(b, h, w, -1)
+            if s == 3:
+                x = tp.constrain(x, self.layer_norm[s].normalized_shape[0])
             feats.append(x)
+            if wholes is not None:
+                wholes.append(whole)
         return feats
 
 
@@ -185,6 +242,7 @@ class SegFormerHead(nn.Module):
     def __init__(self, hidden_sizes, num_classes: int, decoder_dim: int,
                  dropout: float = 0.1):
         super().__init__()
+        self.decoder_dim = decoder_dim
         self.linear_c = nn.ModuleList()
         for width in hidden_sizes:
             mlp = nn.Module()
@@ -197,13 +255,22 @@ class SegFormerHead(nn.Module):
         self.classifier = nn.Conv2d(decoder_dim, num_classes, 1)
 
     def forward(self, feats) -> torch.Tensor:
-        size = tuple(feats[0].shape[1:3])
+        """``feats``: the encoder's maps, or (map, whole) pairs on row
+        strips."""
+        feats = [f if isinstance(f, tuple) else (f, False) for f in feats]
+        size = tuple(feats[0][0].shape[1:3])
+        sp = mesh_lib.strip_mesh()
         proj = []
-        for f, mlp in zip(feats, self.linear_c):
+        for (f, whole), mlp in zip(feats, self.linear_c):
             y = linear(f, mlp.proj)
-            if tuple(y.shape[1:3]) != size:
+            if whole:
+                n = sp.shape[mesh_lib.SPATIAL_AXIS]
+                with mesh_lib.whole_rows():
+                    y = resize_bilinear(y, (size[0] * n, size[1]))
+                y = halo.split_rows(y, sp)
+            elif tuple(y.shape[1:3]) != size:
                 y = resize_bilinear(y, size)
-            proj.append(y)
+            proj.append(tp.full_channels(y, self.decoder_dim))
         y = conv_nhwc(torch.cat(proj[::-1], dim=-1), self.linear_fuse,
                       padding=0)
         y = self.dropout(torch.relu(batch_norm(y, self.batch_norm)))
@@ -246,7 +313,9 @@ class SegFormer(nn.Module):
         if not self.paper_normalization:
             x = x / 255.0
         x = ((x[..., :3] - self.mean) / self.std).to(self.dtype)
-        logits = self.decode_head(self.segformer.encoder(x))
+        wholes = []
+        feats = self.segformer.encoder(x, wholes)
+        logits = self.decode_head(list(zip(feats, wholes)))
         y = torch.relu(conv_transpose_nhwc(logits, self.seq[0], padding=3))
         y = torch.relu(conv_transpose_nhwc(y, self.seq[2], padding=1))
         return conv_nhwc(y, self.seq[4], padding=1).float()

@@ -18,6 +18,21 @@ the forward kernel, and under autograd the backward kernel too. Clamped
 windows below 4 (maps of 1-3 tokens a side) take the einsum path, as in
 the JAX model. Under ``train()`` the decoder's BatchNorm runs on batch
 statistics and updates the running ones.
+
+On row strips (``core/mesh.py`` ``spatial_parallel``) each rank computes
+the windows that hold any of its rows. The shifted block's cyclic roll
+of rows becomes a ring halo (``parallel/halo.py`` ``row_halo`` with
+``ring``): the rows above rank 0's first window come from the last
+rank's bottom, and the rows below the last rank's from rank 0's top;
+columns roll locally. A window that straddles two strips is computed by
+both ranks from the halo; each keeps its own rows, and the halo's
+backward sums the gradients of the rest. The last rank holds the
+window pad rows. The (nWin, T, T) mask is the whole map's, indexed by
+the rank's window rows. Only when a halo would be wider than a
+neighbour's strip does a block gather the map. A stage whose strips have
+an odd number of rows gathers before its 2x2 downsample and runs whole
+(``whole_rows``), and the decoder splits the map again where it meets a
+skip held in strips. K1 and K2 run on each rank's windows either way.
 """
 
 from __future__ import annotations
@@ -30,9 +45,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cvcs_tpu_torch.core import mesh as mesh_lib
 from cvcs_tpu_torch.models.blocks import (DecodeBlock, conv_nhwc,
                                           conv_transpose_nhwc, layer_norm,
                                           linear)
+from cvcs_tpu_torch.parallel import halo
 from cvcs_tpu_torch.ops.swin_attn import (swin_window_attention,
                                           window_merge, window_partition)
 
@@ -139,36 +156,93 @@ class SwinBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, mlp_ratio)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:   # (B, H, W, C)
-        _, h0, w0, _ = x.shape
+    def _geometry(self, h0: int, w0: int) -> tuple[int, int]:
+        """(window, shift) of a map of h0 x w0 tokens."""
         win = min(self.window, h0, w0)
-        ph, pw = -h0 % win, -w0 % win
-        x_pad = F.pad(x, (0, 0, 0, pw, 0, ph)) if (ph or pw) else x
-        h, w = h0 + ph, w0 + pw
         # a map that is a single window is not shifted (official Swin)
         shift = (win // 2 if (self.shifted and win > 1
                               and min(h0, w0) > win) else 0)
-        bias = attn_bias(h, w, h0, w0, win, shift, x.device)
+        return win, shift
+
+    def _windows(self, y, bias, win: int, shift: int) -> torch.Tensor:
+        """The pre-residual attention of a padded map ``y`` whose rows
+        start on a window row (already rolled by the shift there), with
+        the mask ``bias`` of its windows; its columns are rolled here by
+        ``shift`` and back."""
+        _, h, w, _ = y.shape
         if win >= 4:
             # LN is position-wise, so the op sees the rolled raw map
-            y = x_pad
             if shift:
-                y = torch.roll(y, (-shift, -shift), dims=(1, 2))
+                y = torch.roll(y, -shift, dims=2)
             a = self.attn
             y = swin_window_attention(
                 y, self.norm1.weight, self.norm1.bias, a.qkv.weight.t(),
                 a.qkv.bias, a.proj.weight.t(), a.proj.bias, bias,
                 win=win, heads=self.heads)
         else:
-            y = layer_norm(x_pad, self.norm1)
+            y = layer_norm(y, self.norm1)
             if shift:
-                y = torch.roll(y, (-shift, -shift), dims=(1, 2))
+                y = torch.roll(y, -shift, dims=2)
             y = window_merge(self.attn.einsum(window_partition(y, win), bias),
                              win, h, w)
+        return torch.roll(y, shift, dims=2) if shift else y
+
+    def _attend(self, x: torch.Tensor) -> torch.Tensor:
+        """Pad, roll, window attention, roll back, unpad: a whole map."""
+        _, h0, w0, _ = x.shape
+        win, shift = self._geometry(h0, w0)
+        ph, pw = -h0 % win, -w0 % win
+        x_pad = F.pad(x, (0, 0, 0, pw, 0, ph)) if (ph or pw) else x
+        h, w = h0 + ph, w0 + pw
+        bias = attn_bias(h, w, h0, w0, win, shift, x.device)
+        y = (torch.roll(x_pad, (-shift, -shift), dims=(1, 2)) if shift
+             else x_pad)
+        y = self._windows(y, bias, win, 0)
         if shift:
             y = torch.roll(y, (shift, shift), dims=(1, 2))
         # the pad is sliced off before the residual and the MLP
-        x = x + y[:, :h0, :w0]
+        return y[:, :h0, :w0]
+
+    def _attend_strip(self, x: torch.Tensor, sp) -> torch.Tensor:
+        """:meth:`_attend`'s rows of this rank's strip. The rolled map's
+        window rows that hold the strip's rows are, in the unrolled map,
+        a cyclic run of rows from ``tops[s]`` above the strip to
+        ``bots[s]`` below it: a ring halo brings them, already in the
+        rolled order."""
+        n, s = sp.shape[mesh_lib.SPATIAL_AXIS], sp.spatial_index
+        _, h, w0, _ = x.shape
+        h0 = h * n
+        win, shift = self._geometry(h0, w0)
+        ph, pw = -h0 % win, -w0 % win
+        hp, wp = h0 + ph, w0 + pw
+        rows = [h] * (n - 1) + [h + ph]          # the last rank holds the pad
+        starts = [j * h for j in range(n)]
+        tops = [(r0 - shift) % win for r0 in starts]
+        bots = [(shift - r0 - r) % win for r0, r in zip(starts, rows)]
+        if not halo.halo_fits(rows, tops, bots, ring=True):
+            whole = halo.gather_rows(
+                x, sp, f"swin window attention on {h0} x {w0} tokens, "
+                f"window {win}", "windows reach past a neighbour's strip")
+            with mesh_lib.whole_rows():
+                y = self._attend(whole)
+            return halo.split_rows(y, sp)
+        pad_rows = ph if s == n - 1 else 0
+        x_pad = (F.pad(x, (0, 0, 0, pw, 0, pad_rows)) if (pw or pad_rows)
+                 else x)
+        ext = halo.row_halo(x_pad, sp, tops, bots, ring=True)
+        bias = attn_bias(hp, wp, h0, w0, win, shift, x.device)
+        if bias is not None:
+            first = (starts[s] - tops[s] - shift) % hp // win
+            idx = [(first + i) % (hp // win) for i in range(ext.shape[1] // win)]
+            t = win * win
+            bias = bias.view(hp // win, wp // win, t, t)[idx].reshape(-1, t, t)
+        y = self._windows(ext, bias, win, shift)
+        return y[:, tops[s]:tops[s] + h, :w0]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:   # (B, H, W, C)
+        sp = mesh_lib.strip_mesh()
+        y = self._attend(x) if sp is None else self._attend_strip(x, sp)
+        x = x + y
         return x + self.mlp(layer_norm(x, self.norm2))
 
 
@@ -257,11 +331,29 @@ class SwinUNet(nn.Module):
         x = x.to(self.dtype)
         x = layer_norm(conv_nhwc(x, self.patch_embed.proj),
                        self.patch_embed.norm)
+        sp = mesh_lib.strip_mesh()
+        whole = False
         skips = []
-        for stage in self.layers:
-            x = stage(x)
-            skips.append(x)
-        y = skips[-1]
+        for i, stage in enumerate(self.layers):
+            if (stage.downsample is not None and sp is not None
+                    and not whole and x.shape[1] % 2):
+                x = halo.gather_rows(x, sp, f"swin stage {i + 1} downsample",
+                                     "odd strips")
+                whole = True
+            with mesh_lib.whole_rows(whole):
+                x = stage(x)
+            skips.append((x, whole))
+        y, whole = skips[-1]
         for dec, s in zip(self.decoder, (2, 1, 0)):
-            y = dec(y, skips[s])
-        return self.head(y).float()
+            skip, skip_whole = skips[s]
+            with mesh_lib.whole_rows(whole):
+                y = conv_transpose_nhwc(y, dec.up)
+            if whole and not skip_whole:
+                y, whole = halo.split_rows(y, sp), False
+            with mesh_lib.whole_rows(whole):
+                y = dec.decode(torch.cat([skip, y], dim=-1))
+        with mesh_lib.whole_rows(whole):
+            y = self.head(y)
+        if whole and sp is not None:
+            y = halo.split_rows(y, sp)
+        return y.float()

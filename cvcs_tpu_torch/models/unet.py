@@ -22,6 +22,19 @@ puts it first (``unet.py:146-152``).
 ``remat=True`` rematerialises the encoder's conv-BN-ReLU blocks in the
 backward (:class:`~cvcs_tpu_torch.models.blocks.ConvBNAct`); the decoder
 is not rematerialised, as in the JAX model.
+
+On row strips (``core/mesh.py`` ``spatial_parallel``) every level runs
+on the rank's rows (``models/blocks.py``: the 3x3 convs take a one-row
+halo, the 2x2 pools and transposed convs are local). A level whose
+strip has an odd number of rows cannot be pooled locally: its map is
+gathered and the deeper levels run whole on every rank
+(``core/mesh.py`` ``whole_rows``), and the decoder splits the upsampled
+map again where it meets a skip held in strips. ``space_to_depth`` and
+``depth_to_space`` are local on even strips.
+
+The TP hook (JAX ``unet.py:117-120``): under ``parallel/tp.py``
+``tensor_parallel`` the 1024-channel bottleneck is held channel-sharded,
+and the decoder's concatenations gather the sharded maps first.
 """
 
 from __future__ import annotations
@@ -29,10 +42,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from cvcs_tpu_torch.core import mesh as mesh_lib
 from cvcs_tpu_torch.models.blocks import (ConvBNAct, UpscaleBlock,
                                           center_crop, conv_nhwc,
                                           conv_transpose_nhwc, decode,
                                           max_pool_nhwc)
+from cvcs_tpu_torch.parallel import halo, tp
 
 ENCODER_WIDTHS = (64, 128, 256, 512, 1024)
 
@@ -110,24 +125,49 @@ class UNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
+        sp = mesh_lib.strip_mesh()
+        whole = False
         if self.stem == "s2d":
+            if sp is not None and x.shape[1] % 2:
+                x, whole = halo.gather_rows(x, sp, "space_to_depth",
+                                            "odd strips"), True
             x = space_to_depth(x, 2)
         feats = []
         for level in range(len(ENCODER_WIDTHS)):
             if level > 0:
-                x = max_pool_nhwc(x)
-            for blk in getattr(self, f"encode{level + 1}")[-2:]:
-                x = blk(x)
-            feats.append(x)
-        x1, x2, x3, x4, y = feats
-        y = self.decode_forward1[0](torch.cat([x4, self._up(0, y)], -1))
-        y = self.decode_forward2[0](torch.cat([x3, self._up(1, y)], -1))
-        y = center_crop(self._up(2, y), (x2.shape[1], x2.shape[2]))
-        y = self.decode_forward3[0](torch.cat([y, x2], -1))
-        y = self.decode_forward4[0](torch.cat([x1, self._up(3, y)], -1))
-        logits = conv_nhwc(y, self.decode_forward4[1])
+                if sp is not None and not whole and x.shape[1] % 2:
+                    x = halo.gather_rows(
+                        x, sp, f"max pool after level {level}",
+                        "odd strips")
+                    whole = True
+                with mesh_lib.whole_rows(whole):
+                    x = max_pool_nhwc(x)
+            with mesh_lib.whole_rows(whole):
+                for blk in getattr(self, f"encode{level + 1}")[-2:]:
+                    x = blk(x)
+            feats.append((x, whole))
+        (y, whole), skips = feats[-1], feats[-2::-1]
+        y = tp.constrain(y, ENCODER_WIDTHS[-1])
+        for j, (skip, skip_whole) in enumerate(skips):
+            with mesh_lib.whole_rows(whole):
+                y = self._up(j, y)
+            if whole and not skip_whole:
+                y, whole = halo.split_rows(y, sp), False
+            width = ENCODER_WIDTHS[-2 - j]
+            skip, y = tp.full_channels(skip, width), tp.full_channels(y, width)
+            with mesh_lib.whole_rows(whole):
+                if j == 2:
+                    y = center_crop(y, (skip.shape[1], skip.shape[2]))
+                    y = torch.cat([y, skip], -1)
+                else:
+                    y = torch.cat([skip, y], -1)
+                y = getattr(self, f"decode_forward{j + 1}")[0](y)
+        with mesh_lib.whole_rows(whole):
+            logits = conv_nhwc(y, self.decode_forward4[1])
         if self.stem == "s2d":
             logits = depth_to_space(logits, 2)
+        if whole:
+            logits = halo.split_rows(logits, sp)
         return logits.float()
 
 

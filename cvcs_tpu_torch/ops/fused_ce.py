@@ -31,7 +31,9 @@ launches.
 Under :func:`cvcs_tpu_torch.core.mesh.data_parallel` the forward sums
 K3's two sums over the data group before their ratio (the loss of the
 global batch), and K4 divides by the global sum w, so each rank gets the
-gradient of the global loss for its own logits.
+gradient of the global loss for its own logits. Under
+:func:`cvcs_tpu_torch.core.mesh.spatial_parallel` K3 and K4 run on the
+rank's rows and the sums span every rank of the mesh.
 """
 
 from __future__ import annotations
@@ -183,12 +185,11 @@ class FusedCrossEntropyFn(torch.autograd.Function):
         else:
             loss_sum, wsum = ce_sums_plain(logits, labels, weights)
             loss = loss_sum / torch.clamp(wsum, min=1e-12)
-        dp = mesh_lib.active_data_mesh()
-        if dp is not None:
+        if mesh_lib.dp_size() > 1:
             # the global batch's sums, before their ratio; K4 then scales
             # this rank's gradient by the global sum w
             sums = mesh_lib.all_reduce_sum(torch.stack([loss_sum, wsum]),
-                                           dp.data_group)
+                                           mesh_lib.sum_group())
             wsum = sums[1].clone()
             loss = sums[0] / torch.clamp(wsum, min=1e-12)
         ctx.save_for_backward(logits, labels, weights, wsum)

@@ -18,7 +18,9 @@ over the global batch, as JAX's do on a sharded batch: the sums behind
 cross-entropy's sum(w * ce) / sum(w), the MSE mean and Dice's per-class
 sums are summed over the data group, so every rank computes the loss of
 the global batch. Its gradient reaches this rank's logits alone (the
-ranks' parameter gradients are then summed by the train step).
+ranks' parameter gradients are then summed by the train step). Under
+:func:`cvcs_tpu_torch.core.mesh.spatial_parallel` the logits are the
+rank's rows and the sums span every rank of the mesh.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ def mse(logits, labels):
     logits = logits.to(torch.float32)
     onehot = _one_hot(labels.to(torch.int64), logits.shape[-1])
     sq = (logits - onehot) ** 2
-    if mesh_lib.active_data_mesh() is None:
+    if mesh_lib.dp_size() == 1:
         return sq.mean()
     return (mesh_lib.dp_sum(sq.sum(), own_grad=True)
             / (sq.numel() * mesh_lib.dp_size()))

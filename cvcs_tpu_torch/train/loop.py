@@ -33,6 +33,16 @@ matrices over the data group. Rank 0 alone writes the logs, the
 ``metrics_log``, the debug plots and the checkpoints (asynchronous ones
 included), and the other ranks wait for each save at a barrier; the
 preemption flag is agreed between the ranks at each chunk boundary.
+
+With a mesh whose spatial axis has more than one rank (JAX's ``_shard``
+on the spatial axis): the rank's share is also cut to its strip of
+patch rows when the rows divide over the spatial ranks (otherwise the
+spatial ranks compute the same share, as JAX leaves the rows
+unsharded); the train, statistics, validation-loss and predict steps
+run on the strips (``train/step.py`` ``rows``), the gradients and the
+losses span every rank, and the evaluation counts each rank's strips
+and sums the confusion matrices over every rank. A batch that does not
+split over the data ranks is computed whole on every rank.
 """
 
 from __future__ import annotations
@@ -109,9 +119,8 @@ class Trainer:
         self.spec = spec
         self.state = state
         self.state.dropout_seed = config.seed ^ 0xD0
-        # the data-parallel mesh (None: one process)
-        self.mesh = (mesh if mesh is not None
-                     and mesh.shape[mesh_lib.DATA_AXIS] > 1 else None)
+        # the mesh (None: one process)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.lead = self.mesh is None or self.mesh.rank == 0
         if not self.lead:
             log = lambda s: None   # noqa: E731 - rank 0 writes the logs
@@ -206,19 +215,27 @@ class Trainer:
         """The batch's context windows for a net that reads them."""
         return batch.context if self.spec.requires_context else None
 
-    def _share(self, batch, micro: int = 1):
-        """(image, mask, context, valid, mesh) of this rank's share of a
-        batch: with a data mesh and a batch that splits over its ranks (in
-        ``micro`` global micro-batches), the rank's slices and the mesh;
-        otherwise the whole batch and None."""
+    def _share(self, batch, micro: int = 1, downscale: int = 1):
+        """(image, mask, context, valid, mesh, rows) of this rank's share
+        of a batch (its images and masks box- and nearest-downscaled by
+        ``downscale`` first): with a mesh and a batch that splits over
+        its data ranks (in ``micro`` global micro-batches), the rank's
+        slices and the mesh, cut to the rank's strip of rows when they
+        divide over the spatial ranks (``rows``); otherwise the whole
+        batch and None."""
         ctx = self._context(batch)
-        whole = (batch.image, batch.mask, ctx, batch.valid, None)
+        image, mask = batch.image, batch.mask
+        if downscale > 1:
+            image, mask = downscale_batch(image, mask, downscale)
         if self.mesh is None or mesh_lib.data_slice(
-                batch.image.shape[0], self.mesh, micro) is None:
-            return whole
+                image.shape[0], self.mesh, micro) is None:
+            return image, mask, ctx, batch.valid, None, False
         image, mask, ctx, valid = mesh_lib.shard_batch(
-            (batch.image, batch.mask, ctx, batch.valid), self.mesh, micro)
-        return image, mask, ctx, valid, self.mesh
+            (image, mask, ctx, batch.valid), self.mesh, micro)
+        rows = mesh_lib.rows_divide(image.shape[1], self.mesh)
+        if rows:
+            image, mask = mesh_lib.shard_rows((image, mask), self.mesh)
+        return image, mask, ctx, valid, self.mesh, rows
 
     def train(self) -> TrainState:
         cfg = self.config
@@ -243,16 +260,18 @@ class Trainer:
                                    batch.image, batch.mask)
                     n = batch.image.shape[0]
                     accum = cfg.grad_accum if n % cfg.grad_accum == 0 else 1
-                    image, mask, ctx, _, dp = self._share(batch, accum)
+                    image, mask, ctx, _, dp, rows = self._share(batch,
+                                                                accum)
                     chunk_losses.append(train_step(
                         self.state, self.loss_fn, image, mask,
                         accum=accum, update_stats=cfg.bn_exact_stats,
-                        context=ctx, mesh=self.mesh, sharded=dp is not None))
+                        context=ctx, mesh=self.mesh, sharded=dp is not None,
+                        rows=rows))
                     n_patches += n
                     last_batch = batch
                 if not cfg.bn_exact_stats and last_batch is not None:
-                    image, _, ctx, _, dp = self._share(last_batch)
-                    stats_step(self.state, image, ctx, mesh=dp)
+                    image, _, ctx, _, dp, rows = self._share(last_batch)
+                    stats_step(self.state, image, ctx, mesh=dp, rows=rows)
                 if pending is not None:
                     self._harvest(pending, epoch)
                 pending = chunk_losses
@@ -335,9 +354,9 @@ class Trainer:
             chunk = self.val_loader.get_chunk(c, shuffle_patches=False)
             for batch in chunk.batches(self.config.batch_size,
                                        drop_last=False, pad_tail=False):
-                image, mask, ctx, _, dp = self._share(batch)
+                image, mask, ctx, _, dp, rows = self._share(batch)
                 values.append(loss_step(self.state, self.loss_fn, image,
-                                        mask, ctx, mesh=dp))
+                                        mask, ctx, mesh=dp, rows=rows))
         return torch.stack(values).cpu().tolist() if values else []
 
     def evaluate(self, num_classes: int = 16, batch_size: int = 8,
@@ -352,14 +371,16 @@ class Trainer:
             conf = confusion.confusion_matrix(num_classes,
                                               chunk.images.device)
             for batch in chunk.batches(batch_size, drop_last=False):
-                image, mask, ctx, valid, dp = self._share(batch)
-                if (self.mesh is not None and dp is None
-                        and self.mesh.data_index):
-                    continue   # a batch kept whole counts on one rank
-                if downscale > 1:
-                    image, mask = downscale_batch(image, mask, downscale)
+                image, mask, ctx, valid, dp, rows = self._share(
+                    batch, downscale=downscale)
+                if self.mesh is not None and (
+                        (dp is None and self.mesh.data_index)
+                        or (not rows and self.mesh.spatial_index)):
+                    # a share that other ranks hold too counts on one
+                    continue
                 pred = predict_step(self.state, image,
-                                    self.spec.returns_logits, ctx)
+                                    self.spec.returns_logits, ctx,
+                                    mesh=dp, rows=rows)
                 if valid is not None:
                     # padding samples: an out-of-range target drops them
                     mask = torch.where(valid[:, None, None], mask,
@@ -367,6 +388,6 @@ class Trainer:
                 confusion.update_confusion(conf, pred, mask, num_classes,
                                            ignore)
             if self.mesh is not None:
-                conf = mesh_lib.all_reduce_sum(conf, self.mesh.data_group)
+                conf = mesh_lib.all_reduce_sum(conf, self.mesh.world_group)
             host.fold(conf)
         return host

@@ -39,6 +39,15 @@ single-process update of the global batch (JAX ``step.py:84-115`` under a
 sharded ``jit``). A batch that does not split over the ranks is run whole
 on every rank (``sharded=False``), as JAX replicates it, and its
 gradients are averaged over the group so that the replicas stay equal.
+
+``rows=True`` (a mesh whose spatial axis has more than one rank): the
+batch is also cut to this rank's strip of patch rows
+(``mesh.shard_rows``), and the step runs under ``mesh.spatial_parallel``:
+the models compute their strips' rows of the single-device forward
+(halos, gathers), BatchNorm statistics and the loss span every rank of
+the mesh, and the gradients are summed over every rank (each rank's
+graph holds its own rows' share). The statistics refresh, the
+validation loss and the predict step take the same flag.
 """
 
 from __future__ import annotations
@@ -89,9 +98,17 @@ def forward(model, x: torch.Tensor, context=None) -> torch.Tensor:
     return model(x, context.to(torch.float32))
 
 
+def _parallel(mesh, rows: bool, sharded: bool = True):
+    """The step's parallel context: row strips, data parallelism or
+    none."""
+    if rows:
+        return mesh_lib.spatial_parallel(mesh)
+    return mesh_lib.data_parallel(mesh if sharded else None)
+
+
 def train_step(state: TrainState, loss_fn, image, mask, *, accum: int = 1,
                update_stats: bool = True, context=None, mesh=None,
-               sharded: bool = True) -> torch.Tensor:
+               sharded: bool = True, rows: bool = False) -> torch.Tensor:
     """One optimizer update on the batch; returns the loss (a 0-d tensor
     on the device, not synchronised; under a mesh the global batch's)."""
     model = state.model
@@ -104,7 +121,7 @@ def train_step(state: TrainState, loss_fn, image, mask, *, accum: int = 1,
     opt.zero_grad(set_to_none=True)
     seed_dropout(model, state.dropout_seed, state.step)
     with frozen_bn_stats(model, frozen=not update_stats), \
-            mesh_lib.data_parallel(mesh if sharded else None):
+            _parallel(mesh, rows, sharded):
         if accum == 1:
             loss = loss_fn(forward(model, x, context), mask)
             loss.backward()
@@ -125,42 +142,45 @@ def train_step(state: TrainState, loss_fn, image, mask, *, accum: int = 1,
     if mesh is not None:
         mesh_lib.reduce_grads(
             [p for group in opt.param_groups for p in group["params"]
-             if p.requires_grad], mesh, average=not sharded)
+             if p.requires_grad], mesh, average=not sharded, spatial=rows)
     opt.step()
     state.step += 1
     return loss
 
 
 @torch.no_grad()
-def stats_step(state: TrainState, image, context=None, mesh=None) -> None:
+def stats_step(state: TrainState, image, context=None, mesh=None,
+               rows: bool = False) -> None:
     """BatchNorm running-statistics refresh: one train-mode forward whose
     only effect is the statistics update (the companion of
     ``update_stats=False``); with ``mesh``, on this rank's share of the
     batch, the statistics spanning the global one."""
     state.model.train()
     seed_dropout(state.model, 0)
-    with mesh_lib.data_parallel(mesh):
+    with _parallel(mesh, rows):
         forward(state.model, image.to(torch.float32), context)
 
 
 @torch.inference_mode()
 def loss_step(state: TrainState, loss_fn, image, mask, context=None,
-              mesh=None) -> torch.Tensor:
+              mesh=None, rows: bool = False) -> torch.Tensor:
     """Validation loss: eval-mode forward, loss on the f32 logits; with
     ``mesh``, on this rank's share of the batch, the loss the global
     batch's."""
     state.model.eval()
-    with mesh_lib.data_parallel(mesh):
+    with _parallel(mesh, rows):
         return loss_fn(forward(state.model, image.to(torch.float32),
                                context), mask)
 
 
 @torch.inference_mode()
 def predict_step(state: TrainState, image, returns_logits: bool = True,
-                 context=None) -> torch.Tensor:
-    """Eval-mode forward -> int32 label map."""
+                 context=None, mesh=None, rows: bool = False) -> torch.Tensor:
+    """Eval-mode forward -> int32 label map (with ``rows``, this rank's
+    strip of it)."""
     state.model.eval()
-    out = forward(state.model, image.to(torch.float32), context)
+    with _parallel(mesh, rows):
+        out = forward(state.model, image.to(torch.float32), context)
     if returns_logits:
         out = out.argmax(-1)
     return out.to(torch.int32)

@@ -1,5 +1,6 @@
 """Rank bodies of the port's multi-process CPU tests (``test_torch_mesh``,
-``test_torch_halo``, ``test_torch_dp``).
+``test_torch_halo``, ``test_torch_dp``, ``test_torch_spatial``,
+``test_torch_tp``).
 
 :func:`launch` runs a body in ``world`` gloo ranks started by
 ``torch.multiprocessing`` over a ``file://`` rendezvous under the test's
@@ -30,26 +31,55 @@ def launch(body, world: int, tmp_path, *args, timeout: float = 600) -> list:
     value, in rank order. A rank that fails fails the launch; ranks still
     running after ``timeout`` seconds (a collective that never matched)
     are killed and the launch raises."""
+    return start(body, world, tmp_path, *args).join(timeout)
+
+
+class Ranks:
+    """Rank processes started by :func:`start`."""
+
+    def __init__(self, ctx, body, world: int, out: Path):
+        self.ctx, self.body, self.world, self.out = ctx, body, world, out
+
+    def kill(self) -> None:
+        for p in self.ctx.processes:
+            if p.is_alive():
+                p.kill()
+
+    def join(self, timeout: float = 600) -> list:
+        """Each rank's return value, in rank order (see :func:`launch`)."""
+        deadline = time.monotonic() + timeout
+        try:
+            while not self.ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"{self.world} ranks of {self.body.__name__} still "
+                        f"running after {timeout} s")
+        finally:
+            self.kill()
+        results = []
+        for r in range(self.world):
+            with open(self.out / f"{r}.pkl", "rb") as f:
+                results.append(pickle.load(f))
+        return results
+
+
+def start(body, world: int, tmp_path, *args) -> Ranks:
+    """:func:`launch` without waiting: the caller computes meanwhile,
+    then calls ``join`` (or ``kill``). The arguments go through a file:
+    pickled into each child's pipe, more than the pipe holds would block
+    the start of every rank until the one before had imported torch."""
     out = Path(tmp_path) / f"ranks-{uuid.uuid4().hex[:8]}"
     out.mkdir(parents=True)
-    ctx = mp.start_processes(_entry, args=(world, str(out), body, args),
+    with open(out / "args.pkl", "wb") as f:
+        pickle.dump(args, f)
+    ctx = mp.start_processes(_entry, args=(world, str(out), body),
                              nprocs=world, join=False, start_method="spawn")
-    deadline = time.monotonic() + timeout
-    while not ctx.join(timeout=5):
-        if time.monotonic() > deadline:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-            raise TimeoutError(f"{world} ranks of {body.__name__} still "
-                               f"running after {timeout} s")
-    results = []
-    for r in range(world):
-        with open(out / f"{r}.pkl", "rb") as f:
-            results.append(pickle.load(f))
-    return results
+    return Ranks(ctx, body, world, out)
 
 
-def _entry(rank, world, out, body, args):
+def _entry(rank, world, out, body):
+    with open(Path(out) / "args.pkl", "rb") as f:
+        args = pickle.load(f)
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{out}/rdv",
                             rank=rank, world_size=world)
@@ -271,3 +301,190 @@ def train_cli_body(rank, world, cfg, eval_cfg):
                 resumed_from=resumed.last_epoch,
                 resumed_train=resumed.training_loss_values,
                 metrics=metrics)
+
+
+# -- test_torch_spatial --------------------------------------------------------
+def spatial_step(net, start_path, image, mask, loss, weights, keep=None,
+                 m=None):
+    """One f32 SGD2 step of the port's ``net`` from the state dict saved
+    at ``start_path`` on the global batch ``image``/``mask`` (wCEL with
+    ``ignore_background``, or ``loss="fused"``: ``build_fused_ce`` with
+    the same weights; ``loss="remat"``: wCEL with the net built with
+    ``remat``): with a mesh ``m``, this rank's data share cut to
+    its strip of rows, under ``spatial_parallel``. ``keep``: the head
+    dropout's keep mask of the global batch (SegFormer). Returns (loss,
+    state, the ops that took the gather)."""
+    from cvcs_tpu_torch.core import mesh as mesh_lib
+    from cvcs_tpu_torch.models.registry import MODEL_REGISTRY
+    from cvcs_tpu_torch.ops.fused_ce import build_fused_ce
+    from cvcs_tpu_torch.ops.losses import build_loss
+    from cvcs_tpu_torch.parallel import halo
+    from cvcs_tpu_torch.train.optim import build_optimizer
+    from cvcs_tpu_torch.train.state import TrainState
+    from cvcs_tpu_torch.train.step import train_step
+
+    model = MODEL_REGISTRY[net].build(
+        NC, dtype=torch.float32, **({"remat": True} if loss == "remat" else {}))
+    model.load_state_dict(torch.load(start_path, weights_only=True),
+                          strict=True)
+    if keep is not None:
+        model.decode_head.dropout.keep_mask = torch.from_numpy(keep)
+    state = TrainState(model, build_optimizer("SGD2", model.parameters()))
+    state.optimizer.set_epoch(0)
+    fn = (build_fused_ce(weights, ignore_background=True, device="cpu")
+          if loss == "fused" else
+          build_loss("wCEL", weights=weights, ignore_background=True,
+                     device="cpu"))
+    image, mask = torch.from_numpy(image), torch.from_numpy(mask)
+    if m is not None:
+        image, mask = mesh_lib.shard_rows(
+            mesh_lib.shard_batch((image, mask), m), m)
+    halo.reset_gathered()
+    got = train_step(state, fn, image, mask, mesh=m, rows=m is not None)
+    return float(got), dp_state(model), halo.gathered()
+
+
+def halo_checks(rank, m, cases):
+    """Each ``cases`` entry (name -> (whole f64 map, upstream gradients
+    per rank, tops, bots, ring)): this rank's strip through ``row_halo``
+    and the gradient that comes back to it; ``"gather"``: the whole map
+    from ``gather_rows``, and the strip's gradient of a per-rank
+    objective on it."""
+    from cvcs_tpu_torch.parallel import halo
+
+    n = m.shape["spatial"]
+    out = {}
+    for name, (whole, grads, tops, bots, ring) in cases.items():
+        h = whole.shape[1] // n
+        x = torch.from_numpy(whole[:, rank * h:(rank + 1) * h].copy())
+        x.requires_grad_(True)
+        if name == "gather":
+            y = halo.gather_rows(x, m)
+        else:
+            y = halo.row_halo(x, m, tops, bots, ring=ring)
+        (y * torch.from_numpy(grads[rank])).sum().backward()
+        out[name] = (y.detach().numpy(), x.grad.numpy())
+    return out
+
+
+def train_cli_run(cfg) -> dict:
+    """``cli.train`` on ``cfg`` for its epochs, then a resume for one more
+    with ``load_checkpoint: auto``: the losses, the last evaluation's
+    confusion matrix and a digest of the final state."""
+    from cvcs_tpu_torch.cli import train as train_cli
+
+    first = train_cli.build_trainer(cfg)
+    first.train()
+    resumed = train_cli.build_trainer(dict(cfg, epochs=cfg["epochs"] + 1,
+                                           load_checkpoint="auto"))
+    resumed.train()
+    return dict(train=first.training_loss_values,
+                val=first.validation_loss_values,
+                resumed_from=resumed.last_epoch,
+                resumed_train=resumed.training_loss_values,
+                confusion=np.asarray(resumed.conf_history[-1]).tolist(),
+                digest=digest(dp_state(resumed.state.model)))
+
+
+def spatial_body(rank, world, data, steps, halos, cli, single=None):
+    """The ``steps`` (name -> (net, start path, image, mask, loss,
+    weights, keep)) on a (data x world / data) mesh, row strips over its
+    spatial axis; rank 0 returns the states, every rank its losses, a
+    digest of its states and the ops that took the gather. ``halos``: the
+    :func:`halo_checks` cases (a spatial-only mesh). ``cli``: (config,
+    or None) :func:`train_cli_run` with ``mesh: {spatial: world}``;
+    ``single``: (config, or None) the same without a mesh, on rank 0
+    afterwards (the one-process reference)."""
+    m = mesh(data=data, spatial=world // data)
+    out = {}
+    for name, (net, path, image, mask, loss, weights, keep) in \
+            steps.items():
+        value, state, gathered = spatial_step(net, path, image, mask, loss,
+                                              weights, keep, m)
+        out[name] = (value, state if rank == 0 else None, digest(state),
+                     gathered)
+    if halos:
+        from cvcs_tpu_torch.parallel.halo import exchange_row_halo
+
+        out["halo"] = halo_checks(rank, m, halos)
+        # the inference halo wider than a strip: 6 rows over strips of 4
+        whole = halos["conv"][0][0]
+        h = whole.shape[0] // world
+        out["wide"] = exchange_row_halo(
+            torch.from_numpy(whole[rank * h:(rank + 1) * h].copy()), 6,
+            m).numpy()
+    if cli is not None:
+        out["cli"] = train_cli_run(dict(cli, mesh={"spatial": world}))
+    if single is not None and rank == 0:
+        out["single"] = train_cli_run(single)
+    return out
+
+
+# -- test_torch_tp -------------------------------------------------------------
+class ComputeWidths(torch.overrides.TorchFunctionMode):
+    """Records the output channels every conv and linear call writes,
+    by the identity of its weight (a hook on torch's functions: the
+    models call ``F.conv2d`` / ``F.linear`` on their holders' weights)."""
+
+    def __init__(self):
+        super().__init__()
+        self.widths = {}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        F = torch.nn.functional
+        if func in (F.conv2d, F.linear, F.conv_transpose2d):
+            w = args[1] if len(args) > 1 else kwargs["weight"]
+            c = out.shape[1] if func is not F.linear else out.shape[-1]
+            self.widths.setdefault(w.untyped_storage().data_ptr(),
+                                   set()).add(int(c))
+        return out
+
+
+def tp_body(rank, world, cases, min_channels):
+    """Each of ``cases`` (name -> (net, state dict path, image)): the f32
+    eval forward under ``shard_params`` and ``tensor_parallel`` over the
+    mesh's spatial axis. Returns (logits, {weight name: (whole bytes,
+    this rank's bytes)} for the sharded kernels, {holder name: (full
+    output channels, widths written)} for every conv/linear that ran,
+    and on rank 0 the replicated forward's logits)."""
+    from cvcs_tpu_torch.models.registry import MODEL_REGISTRY
+    from cvcs_tpu_torch.parallel import tp
+
+    m = mesh(data=1, spatial=world)
+    out = {}
+    for name, (net, path, image) in cases.items():
+        model = MODEL_REGISTRY[net].build(NC, dtype=torch.float32)
+        model.load_state_dict(torch.load(path, weights_only=True),
+                              strict=True)
+        model.eval()
+        base = None
+        if rank == 0:
+            with torch.no_grad():
+                base = model(torch.from_numpy(image)).numpy()
+        whole = {k: v.numel() * v.element_size()
+                 for k, v in model.named_parameters()}
+        full = {n: h.weight.shape[1 if isinstance(
+            h, torch.nn.ConvTranspose2d) else 0]
+                for n, h in model.named_modules()
+                if isinstance(h, (torch.nn.Conv2d, torch.nn.Linear,
+                                  torch.nn.ConvTranspose2d))}
+        rule = tp.channel_shardings(model, m, min_channels=min_channels)
+        tp.shard_params(model, m, min_channels=min_channels)
+        params = dict(model.named_parameters())
+        sharded = {k: (whole[k], params[k].numel() * params[k].element_size())
+                   for k, dim in rule.items() if dim is not None}
+        rec = ComputeWidths()
+        with torch.no_grad(), rec, tp.tensor_parallel(
+                m, min_channels=min_channels):
+            logits = model(torch.from_numpy(image))
+        writes = {}
+        for n, h in model.named_modules():
+            ptr = getattr(getattr(h, "weight", None), "untyped_storage",
+                          None)
+            if n in full and ptr is not None:
+                got = rec.widths.get(h.weight.untyped_storage().data_ptr())
+                if got:
+                    writes[n] = (full[n], sorted(got))
+        out[name] = (logits.numpy(), sharded, writes, base)
+    return out

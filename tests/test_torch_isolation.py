@@ -35,6 +35,7 @@ def test_modules_found():
     # the mesh: covered by the import and source checks below
     assert "cvcs_tpu_torch.core.mesh" in MODULES
     assert "cvcs_tpu_torch.parallel.halo" in MODULES
+    assert "cvcs_tpu_torch.parallel.tp" in MODULES
 
 
 def test_import_pulls_in_no_jax_and_no_jax_package():

@@ -14,8 +14,10 @@
   ``load_context`` and ``random_tps`` build (their data is held against
   JAX in ``tests/test_torch_context.py``), ``mesh: {data: 2}`` in one
   process raises ``MeshConfig.resolve``'s ``ValueError`` (the data mesh
-  trains in ``tests/test_torch_dp.py``) and ``mesh.spatial > 1``
-  ``NotImplementedError`` naming ROADMAP item 14d, as does a checkpoint
+  trains in ``tests/test_torch_dp.py``), as does ``mesh.spatial > 1``
+  (the spatial mesh trains in ``tests/test_torch_spatial.py``); with a
+  DeepLab net ``mesh.spatial > 1`` raises ``NotImplementedError`` naming
+  slice 13 of ROADMAP Queue 1, as does a checkpoint
   directory holding neither ``state.pt``
   nor an Orbax ``state/``; without a card and without ``device: cpu``
   it raises.
@@ -222,8 +224,12 @@ def test_train_cli_halts_on_nan_and_refuses_what_it_cannot_run(
                                          "devices"):
         train_cli.build_trainer(_config(dataset, tmp_path,
                                         mesh={"data": 2}))
-    with pytest.raises(NotImplementedError, match="item 14d"):
+    with pytest.raises(ValueError, match="mesh 1x2 does not cover 1 "
+                                         "devices"):
         train_cli.build_trainer(_config(dataset, tmp_path,
+                                        mesh={"data": 1, "spatial": 2}))
+    with pytest.raises(NotImplementedError, match="slice 13"):
+        train_cli.build_trainer(_config(dataset, tmp_path, net="Resnet101",
                                         mesh={"data": 1, "spatial": 2}))
     with pytest.raises(ValueError, match="remat: true is not supported"):
         train_cli.build_trainer(_config(dataset, tmp_path, remat=True))
