@@ -14,5 +14,7 @@ augmentation (``ops.augment``) and the fused weighted cross-entropy
 (``ops.fused_ce``) as hand-written CUDA kernels, and the (data,
 spatial) mesh of ranks on ``torch.distributed`` (``core.mesh``,
 ``parallel.halo``) for the sharded scene paths and data-parallel
-training. ROADMAP.md lists what is still to port.
+training, and the host decode and encode tier (``native``) as a C++
+library of the port's own, built with ``g++`` at first use. ROADMAP.md
+lists what is still to port.
 """

@@ -1,221 +1,230 @@
 """Host decode and encode tier (port of ``cvcs_tpu/native/__init__.py``):
-a background decoder with a path-keyed cache, and a background PNG
-writer, behind the JAX module's calls (``prefetch``, ``take``, ``decode``,
-``write_png``, ``write_png_async``, ``flush_writes``, ``load``).
+ctypes bindings of the port's C++ library (``native/tile_reader.cpp``),
+a PNG and TIFF decoder with one background decode worker and a
+path-keyed cache, and a PNG encoder with one background writer thread.
 
-The JAX package binds a C++ library built on libpng and libtiff
-(``cvcs_tpu/native/tile_reader.cpp``). The card host has neither
-``png.h`` nor ``tiffio.h``, so this tier decodes and encodes with PIL on
-Python threads; the C++ decoder itself is ROADMAP item 12b. It keeps the
-C++ tier's design (``tile_reader.cpp`` ``Prefetcher`` and the writer):
+The library builds with ``g++`` from the port's own source at first use
+(never at import) into ``build/native/`` at the repository root, the
+name hashing the source, its header and the flags (``ops/_build.py``
+``build_host``; a file lock makes processes that start together build it
+once). It needs zlib's runtime library (``libz.so.1``) and no libpng,
+libtiff or zlib headers. A build or load that fails raises with the
+compiler's output: there is no quiet fallback.
 
-* one decode worker thread and a cache keyed by path: :func:`prefetch`
-  queues a decode unless the path is cached or pending; :func:`take`
-  removes and returns the path's entry, waiting while it is pending, and
-  decodes inline when the path was never queued;
-* a decode that failed in the worker raises at :func:`take`, the
-  exception an inline decode raises; it is neither swallowed nor
-  retried;
-* one writer thread: :func:`write_png_async` copies the array before it
-  returns and queues its encode; :func:`flush_writes` waits until every
-  queued write has landed and returns how many failed since the last
-  flush.
+* :func:`prefetch` queues a decode on the C++ worker unless the path is
+  cached or pending; :func:`take` removes and returns the path's entry,
+  waiting while it is pending, and decodes inline on the calling thread
+  when the path was never queued (or another ``take`` removed it first);
+* a decode that failed on the worker fails at :func:`take` as an inline
+  decode fails; the entry is removed, so the next ``take`` decodes
+  inline;
+* :func:`write_png_async` hands the array to the writer thread, which
+  copies it before the call returns; :func:`flush_writes` waits until
+  every queued write has landed and returns how many failed since the
+  last flush.
 
-PIL releases the interpreter lock around each block it decodes and
-takes it back after each, so a decode beside a busy Python thread
-queues for the lock once a block, up to the switch interval each time
-(a GIL convoy; ``PERF.md`` §6, PR 13). The threads overlap the caller's
-waits that release the lock (CUDA synchronisations, file reads), not
-its Python work.
+What holds the interpreter lock: nothing in the library. ctypes releases
+the lock around every call into it, and the worker and writer are C++
+threads that never take it, so a decode or an encode runs beside the
+caller's Python at full speed, and an inline :func:`decode` or a cold
+:func:`take` lets the caller's other threads run meanwhile. (The plain
+version, :mod:`cvcs_tpu_torch.native.plain`, decodes with PIL, which
+takes the lock back after every block it decodes.)
 
-Formats: PNG and TIFF, 8-bit with 1-4 channels (PIL modes ``L``, ``LA``,
-``RGB``, ``RGBA``). As the C++ tier rejects other sub-formats up front,
-:func:`decode` and :func:`take` return None for any other mode (palette,
-16-bit, CMYK, ...), and the caller decodes with PIL itself.
+Formats: PNG and TIFF, told apart by their first bytes. The library
+decodes what it decodes byte for byte as ``np.asarray(Image.open(p))``
+does: 8-bit samples with 1-4 channels (PIL modes ``L``, ``LA``, ``RGB``,
+``RGBA``); TIFFs in either byte order, in strips or tiles, uncompressed
+or LZW, Deflate or PackBits with the horizontal predictor; PNGs with any
+row filters, not interlaced. :func:`decode` and :func:`take` return None
+for every other sub-format (palette, 16-bit, tRNS, interlaced PNGs,
+JPEG-compressed TIFFs, ...; the library rejects them from the header),
+and the caller decodes those with PIL. They raise :class:`OSError` naming
+the path for a file they cannot read (missing, truncated, a bad CRC or a
+corrupt stream). The writer encodes (H, W[, C]) uint8 with C in 1, 3, 4.
 """
 
 from __future__ import annotations
 
-import collections
+import ctypes
+import os
 import threading
 from pathlib import Path
 
 import numpy as np
-from PIL import Image
 
-MODES = {"L", "LA", "RGB", "RGBA"}     # the C++ tier's 8-bit, 1-4 channels
-CHANNELS = (1, 3, 4)                   # what the writer encodes
+SOURCE = Path(__file__).with_name("tile_reader.cpp")
 NATIVE_SUFFIXES = {".png", ".tif", ".tiff"}   # what decode and take carry
+# the library's status codes; the others are TR_UNREADABLE (-1) and
+# TR_SMALL (-2, a caller's buffer too short), both raised as OSError
+OK, UNSUPPORTED = 0, -3
+
+_lib: ctypes.CDLL | None = None
+_load_lock = threading.Lock()
+
+
+def build() -> float:
+    """Build the library unless it is current; the seconds it took."""
+    from cvcs_tpu_torch.ops import _build
+
+    return _build.build_host(SOURCE)
+
+
+def load() -> ctypes.CDLL:
+    """The library (built first if needed), its calls declared."""
+    global _lib
+    with _load_lock:
+        if _lib is None:
+            from cvcs_tpu_torch.ops import _build
+
+            _lib = _declare(_build.load_host(SOURCE))
+    return _lib
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    path = ctypes.c_char_p
+    info = [path, u32p, u32p, u32p]
+    into = [path, ctypes.c_void_p, ctypes.c_int64, u32p, u32p, u32p]
+    owned = [path, ctypes.POINTER(ctypes.c_void_p), u32p, u32p, u32p]
+    encode = [path, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32,
+              ctypes.c_uint32]
+    for name, args, res in (
+            ("tr_info", info, ctypes.c_int),
+            ("tr_png_info", info, ctypes.c_int),
+            ("tr_tiff_info", info, ctypes.c_int),
+            ("tr_decode", into, ctypes.c_int),
+            ("tr_decode_png", into, ctypes.c_int),
+            ("tr_decode_tiff", into, ctypes.c_int),
+            ("tr_take", into, ctypes.c_int),
+            ("tr_decode_owned", owned, ctypes.c_int),
+            ("tr_take_owned", owned, ctypes.c_int),
+            ("tr_free", [ctypes.c_void_p], None),
+            ("tr_prefetch", [path], None),
+            ("tr_cache_size", [], ctypes.c_int64),
+            ("tr_decode_count", [ctypes.c_int], ctypes.c_int64),
+            ("tr_last_error", [], ctypes.c_char_p),
+            ("tr_last_errno", [], ctypes.c_int),
+            ("tr_encode_png", encode, ctypes.c_int),
+            ("tr_write_async", encode, None),
+            ("tr_flush_writes", [], ctypes.c_int64)):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, res
+    return lib
+
+
+def _failure(lib: ctypes.CDLL, path) -> OSError:
+    """The OSError of the library's last failure on this thread."""
+    err = lib.tr_last_errno()
+    if err:
+        return OSError(err, os.strerror(err), str(path))
+    return OSError(f"cannot decode {path}: {lib.tr_last_error().decode()}")
+
+
+class _Owned:
+    """A buffer the library handed over, freed with the last array that
+    views it."""
+
+    def __init__(self, lib: ctypes.CDLL, ptr: int, shape: tuple):
+        self._free, self._ptr = lib.tr_free, ptr
+        self.__array_interface__ = dict(shape=shape, typestr="|u1",
+                                        data=(ptr, False), version=3)
+
+    def __del__(self):
+        self._free(self._ptr)
+
+
+def _owned(name: str, path) -> np.ndarray | None:
+    lib = load()
+    data, w, h, c = (ctypes.c_void_p(), ctypes.c_uint32(), ctypes.c_uint32(),
+                     ctypes.c_uint32())
+    rc = getattr(lib, name)(os.fsencode(path), ctypes.byref(data),
+                            ctypes.byref(w), ctypes.byref(h), ctypes.byref(c))
+    if rc == UNSUPPORTED:
+        return None
+    if rc != OK:
+        raise _failure(lib, path)
+    arr = np.asarray(_Owned(lib, data.value, (h.value, w.value, c.value)))
+    return arr[..., 0] if c.value == 1 else arr
+
+
+def _into(info: str, decode: str, path) -> np.ndarray | None:
+    """The JAX module's two calls: the header's size, then a decode into
+    an array of that size."""
+    lib = load()
+    p = os.fsencode(path)
+    w, h, c = ctypes.c_uint32(), ctypes.c_uint32(), ctypes.c_uint32()
+    refs = ctypes.byref(w), ctypes.byref(h), ctypes.byref(c)
+    rc = getattr(lib, info)(p, *refs)
+    if rc == OK:
+        buf = np.empty((h.value, w.value, c.value), np.uint8)
+        rc = getattr(lib, decode)(p, buf.ctypes.data, buf.nbytes, *refs)
+    if rc == UNSUPPORTED:
+        return None
+    if rc != OK:        # TR_SMALL too: the file changed between the calls
+        raise _failure(lib, path)
+    return buf[..., 0] if c.value == 1 else buf
 
 
 def decode(path) -> np.ndarray | None:
     """A PNG or TIFF as (H, W, C) or (H, W) uint8, decoded on the calling
-    thread; None for a mode the tier does not carry. Raises what PIL
-    raises for a file it cannot read."""
-    Image.MAX_IMAGE_PIXELS = None       # GID15 scenes are 49 Mpx
-    with Image.open(path) as im:
-        if im.mode not in MODES:
-            return None
-        return np.asarray(im)
+    thread (the interpreter lock released); None for a sub-format the
+    tier does not carry. Raises OSError for a file it cannot read."""
+    return _owned("tr_decode_owned", path)
 
 
-def _encode(path: str, arr: np.ndarray) -> bool:
-    """(H, W, C) uint8 with C in 1, 3, 4 as a PNG at ``path``."""
-    if arr.ndim != 3 or arr.shape[2] not in CHANNELS:
-        return False
-    try:
-        Image.fromarray(arr[..., 0] if arr.shape[2] == 1 else arr).save(
-            path, format="PNG")
-    except (OSError, ValueError):
-        return False
-    return True
+def decode_png(path) -> np.ndarray | None:
+    """A PNG as :func:`decode` gives it; a TIFF is unreadable here."""
+    return _into("tr_png_info", "tr_decode_png", path)
 
 
-class _Prefetcher:
-    """One decode worker and the path-keyed cache of its results: path ->
-    (array or None, the exception its decode raised or None)."""
-
-    def __init__(self):
-        self._cv = threading.Condition()
-        self._queue: collections.deque = collections.deque()
-        self._pending: set = set()
-        self._cache: dict = {}
-        self._worker: threading.Thread | None = None
-
-    def prefetch(self, path) -> None:
-        key = str(path)
-        with self._cv:
-            if key in self._cache or key in self._pending:
-                return
-            self._pending.add(key)
-            self._queue.append(key)
-            if self._worker is None:
-                self._worker = threading.Thread(
-                    target=self._run, name="native-decode", daemon=True)
-                self._worker.start()
-            self._cv.notify_all()
-
-    def take(self, path) -> np.ndarray | None:
-        key = str(path)
-        with self._cv:
-            # wait for "cached or no longer pending": another take of the
-            # same path may have removed the entry first
-            self._cv.wait_for(lambda: key in self._cache
-                              or key not in self._pending)
-            hit = self._cache.pop(key, None)
-        if hit is None:
-            return decode(key)           # never queued: decode inline
-        arr, err = hit
-        if err is not None:
-            raise err
-        return arr
-
-    def size(self) -> int:
-        with self._cv:
-            return len(self._cache)
-
-    def _run(self) -> None:
-        while True:
-            with self._cv:
-                self._cv.wait_for(lambda: self._queue)
-                key = self._queue.popleft()
-            try:
-                hit = (decode(key), None)
-            except BaseException as err:  # raised again at take()
-                hit = (None, err)
-            with self._cv:
-                self._cache[key] = hit
-                self._pending.discard(key)
-                self._cv.notify_all()
-
-
-class _Writer:
-    """One PNG writer thread; counts the writes that failed."""
-
-    def __init__(self):
-        self._cv = threading.Condition()
-        self._queue: collections.deque = collections.deque()
-        self._busy = 0
-        self._failures = 0
-        self._worker: threading.Thread | None = None
-
-    def write(self, path, arr: np.ndarray) -> None:
-        with self._cv:
-            self._queue.append((str(path), arr))
-            if self._worker is None:
-                self._worker = threading.Thread(
-                    target=self._run, name="native-write", daemon=True)
-                self._worker.start()
-            self._cv.notify_all()
-
-    def flush(self) -> int:
-        with self._cv:
-            self._cv.wait_for(lambda: not self._queue and not self._busy)
-            failures, self._failures = self._failures, 0
-            return failures
-
-    def _run(self) -> None:
-        while True:
-            with self._cv:
-                self._cv.wait_for(lambda: self._queue)
-                path, arr = self._queue.popleft()
-                self._busy += 1
-            try:
-                ok = _encode(path, arr)
-            except BaseException:       # a failure; the thread lives on
-                ok = False
-            with self._cv:
-                self._busy -= 1
-                self._failures += not ok
-                self._cv.notify_all()
-
-
-_prefetcher = _Prefetcher()
-_writer = _Writer()
-
-
-def load():
-    """The tier's decoder (always available: PIL is a dependency). The
-    JAX module returns its C library here, or None when it cannot build
-    it."""
-    return _prefetcher
+def decode_tiff(path) -> np.ndarray | None:
+    """A TIFF as :func:`decode` gives it; a PNG is unreadable here."""
+    return _into("tr_tiff_info", "tr_decode_tiff", path)
 
 
 def prefetch(path) -> None:
-    """Queue a background decode of ``path``."""
-    _prefetcher.prefetch(Path(path))
+    """Queue a background decode of ``path`` on the C++ worker."""
+    load().tr_prefetch(os.fsencode(path))
 
 
 def take(path) -> np.ndarray | None:
     """The decoded raster of ``path``: its prefetched entry (removed from
     the cache; waits while its decode runs), or an inline decode when it
-    was never queued. Raises the decode's exception; None for a mode the
-    tier does not carry."""
-    return _prefetcher.take(Path(path))
+    was never queued. None for a sub-format the tier does not carry;
+    raises OSError for a file it cannot read, whichever thread decoded
+    it."""
+    return _owned("tr_take_owned", path)
 
 
 def _as_hwc(arr: np.ndarray) -> np.ndarray:
-    """A contiguous uint8 copy of (H, W[, C]) as (H, W, C)."""
-    arr = np.array(arr, dtype=np.uint8, order="C", copy=True)
+    """(H, W[, C]) as a contiguous uint8 (H, W, C) array."""
+    arr = np.ascontiguousarray(arr, dtype=np.uint8)
+    if arr.ndim not in (2, 3):
+        raise ValueError(f"a PNG is (H, W[, C]), not {arr.shape}")
     return arr[..., None] if arr.ndim == 2 else arr
 
 
 def write_png(path, arr: np.ndarray) -> bool:
     """Encode (H, W[, C]) uint8, C in 1, 3, 4, as a PNG at ``path`` now;
     False when it cannot be written."""
-    return _encode(str(path), _as_hwc(arr))
+    h, w, c = (arr := _as_hwc(arr)).shape
+    return load().tr_encode_png(os.fsencode(path), arr.ctypes.data,
+                                w, h, c) == OK
 
 
 def write_png_async(path, arr: np.ndarray) -> bool:
-    """Queue a PNG write of a copy of ``arr`` (the caller may reuse its
-    buffer at once); call :func:`flush_writes` before relying on the
-    file. Returns True (the JAX module returns False when its library is
-    missing)."""
-    _writer.write(Path(path), _as_hwc(arr))
+    """Queue a PNG write of ``arr`` (copied before this returns, so the
+    caller may reuse its buffer at once); call :func:`flush_writes`
+    before relying on the file. Returns True; a write that cannot be
+    made (C not in 1, 3, 4, an unwritable path) counts as a failure at
+    the flush."""
+    h, w, c = (arr := _as_hwc(arr)).shape
+    load().tr_write_async(os.fsencode(path), arr.ctypes.data, w, h, c)
     return True
 
 
 def flush_writes() -> int:
     """Block until every queued write has landed; the number of writes
     that failed since the last flush."""
-    return _writer.flush()
+    return int(load().tr_flush_writes())

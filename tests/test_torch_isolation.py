@@ -7,11 +7,16 @@
   ``tensorstore`` only when it reads.
 * A source scan finds no jax / flax / orbax import and no ``cvcs_tpu.``
   import.
+* The host tier is the port's own: its C++ sources include no ``png.h``,
+  ``tiffio.h`` or ``zlib.h``, no module names the JAX package's
+  ``native`` tier outside a docstring, and ``native.load()`` loads the
+  library built from ``cvcs_tpu_torch/native/tile_reader.cpp``.
 * Without ``device="cpu"``, the entry points raise on a machine with no
   card instead of running on the CPU.
 """
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -69,6 +74,37 @@ def test_source_imports_nothing_of_jax(path):
             assert root not in ("jax", "jaxlib", "flax", "orbax",
                                 "cvcs_tpu"), (
                 f"{path}: imports {name}")
+
+
+@pytest.mark.parametrize(
+    "path", sorted(p for p in PKG.rglob("*") if p.suffix in (".cpp", ".h")),
+    ids=lambda p: str(p.relative_to(PKG)))
+def test_host_sources_include_no_format_headers(path):
+    includes = re.findall(r'^\s*#\s*include\s*[<"]([^>"]+)[>"]',
+                          path.read_text(), re.M)
+    assert not {"png.h", "tiffio.h", "zlib.h"} & {
+        Path(i).name for i in includes}, (path, includes)
+
+
+def test_the_host_tier_is_the_ports_own():
+    from cvcs_tpu_torch import native
+    from cvcs_tpu_torch.ops import _build
+
+    for path in sorted(PKG.rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        docs = {id(n.body[0].value) for n in ast.walk(tree)
+                if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                  ast.AsyncFunctionDef))
+                and n.body and isinstance(n.body[0], ast.Expr)}
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docs):
+                assert not re.search(r"cvcs_tpu[./]native|libtile_reader\.so",
+                                     node.value), (path, node.value)
+    assert native.SOURCE == PKG / "native" / "tile_reader.cpp"
+    lib = Path(native.load()._name)
+    assert lib == _build.host_library_path(native.SOURCE)
+    assert lib.parent == PKG.parent / "build" / "native"
 
 
 @pytest.fixture

@@ -3,15 +3,16 @@ synthetic PNG and TIFF rasters written with PIL.
 
 * ``prefetch`` + ``take`` return what the JAX package's
   ``SceneDataset.load_image`` / ``load_index_mask`` return for the same
-  files, decoded on the worker thread, and ``take`` removes the entry;
-  a path never queued decodes inline on the calling thread; a decode
-  that failed on the worker raises at ``take`` what an inline decode
-  raises (a second ``take`` decodes inline and raises again); a mode the
-  tier does not carry (palette) gives None, as the C++ tier rejects it.
+  files, decoded on the C++ worker (its decode counters), and ``take``
+  removes the entry; a path never queued decodes inline on the calling
+  thread; a decode that failed on the worker raises at ``take`` what an
+  inline decode raises (a second ``take`` decodes inline and raises
+  again); a sub-format the tier does not carry (palette) gives None.
 * ``write_png_async`` copies its array (the caller's buffer is changed
   after the call) and ``flush_writes`` returns once the files decode to
   the arrays; an unwritable path counts one failure, and the count is
-  reset by the flush; an encode that raises anything is counted too, and
+  reset by the flush. The plain version's writer
+  (``native.plain``): an encode that raises anything is counted too, and
   the writer thread goes on writing.
 * ``ChunkLoader.get_chunk(c)`` queues chunk c + 1's images and masks
   (a spy) and gives the chunks of a loader whose prefetch does nothing.
@@ -40,6 +41,7 @@ from cvcs_tpu.infer import SceneSegmenter as JaxSceneSegmenter
 from cvcs_tpu.models.swin import SwinUNet as JaxSwinUNet
 from cvcs_tpu_torch import native
 from cvcs_tpu_torch.cli import serve as serve_cli
+from cvcs_tpu_torch.native import plain
 from cvcs_tpu_torch.data import loader as loader_lib
 from cvcs_tpu_torch.data import reader
 from cvcs_tpu_torch.weights import flatten_variables
@@ -85,38 +87,37 @@ def _dataset(root):
     return root
 
 
-def test_prefetch_and_take_equal_jax_scene_dataset(tmp_path, monkeypatch):
+def _decodes():
+    """(decodes on the C++ worker, decodes inline in take) so far."""
+    lib = native.load()
+    return lib.tr_decode_count(1), lib.tr_decode_count(0)
+
+
+def test_prefetch_and_take_equal_jax_scene_dataset(tmp_path):
     root = _dataset(tmp_path / "d")
     want = JaxSceneDataset(root)
     mine = reader.SceneDataset(root)
-    threads = []
-    decode = native.decode
-    monkeypatch.setattr(native, "decode", lambda p: threads.append(
-        threading.current_thread().name) or decode(p))
+    worker, inline = _decodes()
     mine.prefetch([0, 1])
     for i in range(2):
         np.testing.assert_array_equal(mine.load_image(i), want.load_image(i))
         np.testing.assert_array_equal(mine.load_index_mask(i),
                                       want.load_index_mask(i))
     # every raster decoded once, on the worker; the cache is empty again
-    assert threads == ["native-decode"] * 4
-    assert native.load().size() == 0
+    assert _decodes() == (worker + 4, inline)
+    assert native.load().tr_cache_size() == 0
 
 
-def test_a_miss_decodes_inline_and_a_palette_is_not_carried(tmp_path,
-                                                            monkeypatch):
+def test_a_miss_decodes_inline_and_a_palette_is_not_carried(tmp_path):
     arr = np.random.default_rng(4).integers(0, 256, (20, 30, 3), np.uint8)
     Image.fromarray(arr).save(tmp_path / "a.tif")
-    threads = []
-    decode = native.decode
-    monkeypatch.setattr(native, "decode", lambda p: threads.append(
-        threading.current_thread().name) or decode(p))
+    worker, inline = _decodes()
     np.testing.assert_array_equal(native.take(tmp_path / "a.tif"), arr)
-    assert threads == [threading.current_thread().name]
+    assert _decodes() == (worker, inline + 1)
     Image.fromarray(arr[..., 0]).convert("P").save(tmp_path / "p.png")
     native.prefetch(tmp_path / "p.png")
     assert native.take(tmp_path / "p.png") is None
-    assert native.load().size() == 0
+    assert native.load().tr_cache_size() == 0
 
 
 def test_a_failed_prefetch_raises_at_take(tmp_path):
@@ -127,7 +128,7 @@ def test_a_failed_prefetch_raises_at_take(tmp_path):
     native.prefetch(bad)
     with pytest.raises(type(inline.value), match=str(inline.value)):
         native.take(bad)
-    assert native.load().size() == 0
+    assert native.load().tr_cache_size() == 0
     with pytest.raises(type(inline.value)):      # not cached as a success
         native.take(bad)
 
@@ -155,7 +156,7 @@ def test_async_writes_copy_land_and_count_failures(tmp_path):
 
 def test_an_encode_that_raises_is_counted_and_the_writer_lives_on(
         tmp_path, monkeypatch):
-    encode = native._encode
+    encode = plain._encode
     arr = np.arange(12, dtype=np.uint8).reshape(3, 4)
 
     def broken(path, a):
@@ -164,18 +165,18 @@ def test_an_encode_that_raises_is_counted_and_the_writer_lives_on(
     def flush():
         # on a thread: a writer that died would leave flush_writes waiting
         got = []
-        t = threading.Thread(target=lambda: got.append(native.flush_writes()),
+        t = threading.Thread(target=lambda: got.append(plain.flush_writes()),
                              daemon=True)
         t.start()
         t.join(10)
         assert got, "flush_writes() does not return"
         return got[0]
 
-    monkeypatch.setattr(native, "_encode", broken)
-    assert native.write_png_async(tmp_path / "a.png", arr)
+    monkeypatch.setattr(plain, "_encode", broken)
+    assert plain.write_png_async(tmp_path / "a.png", arr)
     assert flush() == 1
-    monkeypatch.setattr(native, "_encode", encode)
-    assert native.write_png_async(tmp_path / "b.png", arr)
+    monkeypatch.setattr(plain, "_encode", encode)
+    assert plain.write_png_async(tmp_path / "b.png", arr)
     assert flush() == 0
     np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "b.png")),
                                   arr)
@@ -196,7 +197,7 @@ def test_get_chunk_queues_the_next_chunk(gid15_root, monkeypatch):
     ds = mine.dataset
     assert queued == [p.name for i in mine.chunks[1]
                       for p in (ds.image_paths[i], ds.index_mask_path(i))]
-    assert native.load().size() == 0
+    assert native.load().tr_cache_size() == 0
     for a, b in zip(got, want):
         assert torch.equal(a.images, b.images)
         assert torch.equal(a.masks, b.masks)
