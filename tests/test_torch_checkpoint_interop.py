@@ -63,6 +63,7 @@ from cvcs_tpu_torch.train.state import TrainState
 from cvcs_tpu_torch.train.step import train_step
 from cvcs_tpu_torch.utils import torch_import
 from cvcs_tpu_torch.weights import jax_state_dict
+from _bounded import bounded_call
 
 TOL = 1e-4                              # x max(1, |JAX|max), f32
 NC = 16
@@ -361,7 +362,7 @@ def test_async_save_roundtrip_and_snapshot(tmp_path):
     path = ckpt_lib.save_checkpoint(tmp_path, 0, state, [1.0], [2.0], 4,
                                     "SGD2", async_save=True)
     _step(state, seed=1)                           # in place, at once
-    ckpt_lib.wait_for_saves()
+    bounded_call(ckpt_lib.wait_for_saves, 30)
     _equal_payload(path, want["m"], want["o"])
     restored, meta = ckpt_lib.load_checkpoint(path, _tiny_state(seed=5))
     assert meta["epoch"] == 0 and meta["batch_size"] == 4
@@ -392,7 +393,7 @@ def test_write_in_flight_is_passed_by(tmp_path, monkeypatch):
                                                        "checkpoint1"]
     assert (tmp_path / "checkpoint3").is_dir()
     release.set()
-    ckpt_lib.wait_for_saves()
+    bounded_call(ckpt_lib.wait_for_saves, 30)
     assert ckpt_lib.latest_checkpoint(tmp_path) == tmp_path / "checkpoint3"
     assert ckpt_lib.prune_checkpoints(tmp_path, 1) == [tmp_path /
                                                        "checkpoint2"]
@@ -402,7 +403,7 @@ def test_torn_meta_degrades(tmp_path):
     state = _tiny_state()
     path = ckpt_lib.save_checkpoint(tmp_path, 0, state, [1.0], [2.0], 4,
                                     "SGD2", async_save=True)
-    ckpt_lib.wait_for_saves()
+    bounded_call(ckpt_lib.wait_for_saves, 30)
     assert not (path / "meta.json.tmp").exists()
     (path / "meta.json").write_text('{"epoch": 0, "batch_si')
     restored, meta = ckpt_lib.load_checkpoint(path, _tiny_state(seed=5))

@@ -27,6 +27,7 @@ from cvcs_tpu_torch.train import checkpoint as ckpt_lib
 from cvcs_tpu_torch.train.optim import build_optimizer
 from cvcs_tpu_torch.train.state import TrainState
 from cvcs_tpu_torch.train.step import train_step
+from _bounded import bounded_call
 
 pytestmark = pytest.mark.cuda
 
@@ -65,7 +66,7 @@ def test_async_snapshot_precedes_next_step(card, tmp_path):
     path = ckpt_lib.save_checkpoint(tmp_path, 0, state, [1.0], [1.0], 2,
                                     "SGD2", async_save=True)
     _step(state, card, 1)              # in place, while the write runs
-    ckpt_lib.wait_for_saves()
+    bounded_call(ckpt_lib.wait_for_saves, 30)
     saved = torch.load(path / ckpt_lib.STATE, weights_only=True)
     assert all(torch.equal(saved["model"][k], v)
                for k, v in want_model.items())

@@ -17,7 +17,6 @@
 
 import ast
 import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -26,6 +25,7 @@ import pytest
 import torch
 
 import cvcs_tpu_torch
+from _bounded import run_bounded
 
 PKG = Path(cvcs_tpu_torch.__file__).parent
 MODULES = sorted(
@@ -53,8 +53,7 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
            " 'orbax', 'tensorstore', 'cvcs_tpu') or m.startswith(('jax.',"
            " 'flax.', 'orbax.', 'tensorstore.', 'cvcs_tpu.')))",
            "print(repr(bad))"])
-    out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
-                         capture_output=True, text=True, timeout=120)
+    out = run_bounded([sys.executable, "-c", code], 120, cwd=PKG.parent)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
 

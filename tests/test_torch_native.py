@@ -26,7 +26,6 @@ synthetic PNG and TIFF rasters written with PIL.
 """
 
 import json
-import threading
 
 import jax
 import numpy as np
@@ -45,6 +44,7 @@ from cvcs_tpu_torch.native import plain
 from cvcs_tpu_torch.data import loader as loader_lib
 from cvcs_tpu_torch.data import reader
 from cvcs_tpu_torch.weights import flatten_variables
+from _bounded import bounded_call
 from test_torch_engine import scene
 from test_torch_serve import BC, P, TINY_NET
 from test_torch_spatial import _numpy_variables
@@ -144,11 +144,11 @@ def test_async_writes_copy_land_and_count_failures(tmp_path):
         buf[:] = 0                      # the queued write holds a copy
     assert native.write_png_async(tmp_path / "missing" / "x.png",
                                   arrays["rgb.png"])
-    assert native.flush_writes() == 1
+    assert bounded_call(native.flush_writes, 30) == 1
     for name, arr in arrays.items():
         np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / name)),
                                       arr)
-    assert native.flush_writes() == 0
+    assert bounded_call(native.flush_writes, 30) == 0
     assert native.write_png(tmp_path / "sync.png", arrays["rgb.png"])
     assert not native.write_png(tmp_path / "missing" / "y.png",
                                 arrays["rgb.png"])
@@ -163,14 +163,8 @@ def test_an_encode_that_raises_is_counted_and_the_writer_lives_on(
         raise TypeError("broken encoder")
 
     def flush():
-        # on a thread: a writer that died would leave flush_writes waiting
-        got = []
-        t = threading.Thread(target=lambda: got.append(plain.flush_writes()),
-                             daemon=True)
-        t.start()
-        t.join(10)
-        assert got, "flush_writes() does not return"
-        return got[0]
+        # bounded: a writer that died would leave flush_writes waiting
+        return bounded_call(plain.flush_writes, 10)
 
     monkeypatch.setattr(plain, "_encode", broken)
     assert plain.write_png_async(tmp_path / "a.png", arr)

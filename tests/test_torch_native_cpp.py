@@ -42,6 +42,7 @@ from cvcs_tpu_torch import native
 from cvcs_tpu_torch.data import reader
 from cvcs_tpu_torch.data.palette import PALETTE
 from cvcs_tpu_torch.native import plain
+from _bounded import bounded_call
 from test_native import _write_tiff
 
 
@@ -341,7 +342,7 @@ def test_write_png_refuses_two_channels(tmp_path):
     arr = _image((4, 5, 2))
     assert not native.write_png(tmp_path / "la.png", arr)
     assert native.write_png_async(tmp_path / "la.png", arr)
-    assert native.flush_writes() == 1
+    assert bounded_call(native.flush_writes, 30) == 1
     assert not (tmp_path / "la.png").exists()
 
 
@@ -351,7 +352,7 @@ def test_async_writes_copy_and_flush(tmp_path):
         buf = a.copy()
         assert native.write_png_async(tmp_path / f"a{i}.png", buf)
         buf[:] = 0                        # the queued write holds a copy
-    assert native.flush_writes() == 0
+    assert bounded_call(native.flush_writes, 30) == 0
     for i, a in enumerate(arrs):
         np.testing.assert_array_equal(
             np.asarray(Image.open(tmp_path / f"a{i}.png")), a)
@@ -360,8 +361,8 @@ def test_async_writes_copy_and_flush(tmp_path):
 def test_async_write_failure_counted_once(tmp_path):
     native.write_png_async(tmp_path / "no_dir" / "x.png",
                            np.zeros((4, 4, 3), np.uint8))
-    assert native.flush_writes() == 1
-    assert native.flush_writes() == 0
+    assert bounded_call(native.flush_writes, 30) == 1
+    assert bounded_call(native.flush_writes, 30) == 0
 
 
 def test_mask_pngs_read_back(tmp_path):

@@ -89,6 +89,7 @@ import torch
 from flax import linen as fnn
 
 import _torch_ranks as ranks
+from _bounded import kill_workers
 from cvcs_tpu.models import build_model as jax_build_model
 from cvcs_tpu.ops.losses import build_loss as jax_build_loss
 from cvcs_tpu.train import build_optimizer as jax_build_optimizer
@@ -101,6 +102,7 @@ NC, BATCH = ranks.NC, 4
 KEY = jax.random.key(7)            # the JAX step's dropout key
 ATOL = RTOL = 1e-4                 # JAX's spatial step's pin
 LOSS_RTOL = 1e-5
+WAIT_S = 600                       # each wait on a helper, as Ranks.join's
 # case -> (net, patch, loss[, global batch]); "wCEL64" computes in f64 on
 # both sides (parameters f32): at these inputs JAX's own f32 Resnet50 step
 # moves the stem conv's update by 4.3e-4 from its f64 step's (6% of the
@@ -449,7 +451,7 @@ def runs(gid15_root, tmp_path_factory):
                             dict(epoch, checkpoint_directory=str(
                                 tmp / "mobilenet_single")))
         cases = _cases(set(STEPS) - set(HELPED), tmp)
-        steps = _steps(cases, STEPS) | helped.result()
+        steps = _steps(cases, STEPS) | helped.result(WAIT_S)
         launches = [
             ranks.start(ranks.spatial_body, 2, tmp, 1,
                         {n: steps[n] for n in WORLD2}, _halo_cases(),
@@ -458,12 +460,16 @@ def runs(gid15_root, tmp_path_factory):
             ranks.start(ranks.spatial_body, 4, tmp, 2,
                         {n: steps[n] for n in WORLD4}, None, None)]
         try:
-            refs = _refs(cases) | helped_refs.result()
+            refs = _refs(cases) | helped_refs.result(WAIT_S)
             got2, got4 = [r.join() for r in launches]
         finally:
             for r in launches:
                 r.kill()
-        one = one.result()
+        one = one.result(WAIT_S)
+    except BaseException:
+        for pool in (helper, single):     # shutdown would wait on them
+            kill_workers(pool)
+        raise
     finally:
         for pool in (helper, single):
             pool.shutdown(cancel_futures=True)
